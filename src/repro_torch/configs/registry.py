@@ -1,0 +1,18 @@
+"""--arch resolution for the port. Only architectures the port can build
+are listed; the reference's model zoo is not ported yet."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.paper_charlm import CONFIG as _PAPER_CHARLM
+
+_CONFIGS = {"paper-charlm": _PAPER_CHARLM}
+
+ALL_ARCHS = tuple(_CONFIGS)
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return _CONFIGS[name]
+    except KeyError:
+        raise KeyError(f"arch {name!r} is not ported yet; the port builds "
+                       f"{sorted(_CONFIGS)}") from None

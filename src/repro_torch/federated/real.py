@@ -1,0 +1,137 @@
+"""The port's real learner: federated training of the CharLM in PyTorch.
+
+It speaks the reference engine's learner protocol (``real``, ``version``,
+``client_deltas``, ``client_delta``, ``apply(..., staleness=)``,
+``eval_perplexity``), so it can stand in for the reference ``RealLearner``
+inside the reference ``Experiment``. It holds server params + FedAdam state
+on its device and, for FedBuff, a ring of recent param versions so stale
+clients train against the model they were sent. Deltas optionally
+round-trip the int8 wire codec (the CUDA kernels on the card).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import FederatedConfig, ModelConfig, RunConfig
+from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.federated import aggregation
+from repro_torch.federated.client import (make_client_update, stack_batches,
+                                          to_device)
+from repro_torch.models import get_model
+from repro_torch.optim import server_optimizer
+from repro_torch.weights import params_from_jax
+
+Params = Dict[str, torch.Tensor]
+
+
+class RealLearner:
+    real = True
+
+    def __init__(self, model_cfg: ModelConfig, fed: FederatedConfig,
+                 run: RunConfig, dataset: FederatedDataset,
+                 max_client_steps: int = 8, seed: int = 0,
+                 device: torch.device | str = "cuda",
+                 init_params: Optional[Dict[str, np.ndarray]] = None):
+        """`init_params`: a flat NumPy dict (e.g. a JAX learner's params) to
+        start from instead of the port's own seeded init."""
+        self.cfg = model_cfg
+        self.fed = fed
+        self.run = run
+        self.dataset = dataset
+        self.max_steps = max_client_steps
+        self.device = resolve_device(device)
+        self.model = get_model(model_cfg)
+        if init_params is None:
+            gen = torch.Generator().manual_seed(seed)
+            self.params, _ = self.model.init(gen, device=self.device)
+        else:
+            self.params = params_from_jax(init_params, self.device, model_cfg)
+        self.opt = server_optimizer(fed.server_optimizer, fed.server_lr,
+                                    b1=fed.adam_beta1, b2=fed.adam_beta2,
+                                    eps=fed.adam_eps)
+        self.opt_state = self.opt.init(self.params)
+        self._client_update = make_client_update(self.model.loss, fed.client_lr)
+        self.version = 0
+        # updates are functional (new tensors each step), so the ring holds
+        # references, not copies
+        self._history: List[Tuple[int, Params]] = []
+        self._push_history()
+        self._eval_batch = None
+
+    # -------------------------------------------------------------- history
+    def _push_history(self):
+        self._history.append((self.version, self.params))
+        if len(self._history) > max(2, self.fed.staleness_cap):
+            self._history.pop(0)
+
+    def params_at(self, version: int) -> Params:
+        for v, p in reversed(self._history):
+            if v <= version:
+                return p
+        return self._history[0][1]
+
+    def _base(self, version: Optional[int]) -> Params:
+        return self.params if version is None or version == self.version \
+            else self.params_at(version)
+
+    def _train(self, base: Params, client_id: int) -> Tuple[Params, float]:
+        batches = self.dataset.client_batches(
+            client_id, self.fed.client_batch_size, self.fed.local_epochs)
+        stacked, mask = stack_batches(batches, self.max_steps)
+        delta, _ = self._client_update(base, to_device(stacked, self.device),
+                                       mask)
+        n_ex = min(len(batches), self.max_steps) * self.fed.client_batch_size
+        return delta, float(n_ex)
+
+    # -------------------------------------------------------------- learner
+    def client_deltas(self, client_ids, version: Optional[int] = None):
+        """Cohort update: every client trains from the same server params
+        (one after another), then the STACKED (N, ...) deltas go through the
+        codec as one tensor per leaf, as the reference's vmapped path does."""
+        base = self._base(version)
+        deltas, n_ex = zip(*(self._train(base, cid) for cid in client_ids))
+        stacked = {k: torch.stack([d[k] for d in deltas]) for k in base}
+        if self.fed.compression == "int8":
+            stacked = aggregation.compress_roundtrip(
+                stacked, block=self.fed.quant_block)
+        return ([{k: v[i] for k, v in stacked.items()}
+                 for i in range(len(client_ids))], list(n_ex))
+
+    def client_delta(self, client_id: int, version: Optional[int] = None):
+        """Run real local training; returns (delta dict, example weight)."""
+        delta, n_ex = self._train(self._base(version), client_id)
+        if self.fed.compression == "int8":
+            delta = aggregation.compress_roundtrip(delta,
+                                                   block=self.fed.quant_block)
+        return delta, n_ex
+
+    def apply(self, deltas: List[Params], weights: List[float], *,
+              n_contributors: int = 0, mean_staleness: float = 0.0,
+              staleness: Optional[List[int]] = None) -> None:
+        assert deltas, "apply() with empty buffer"
+        w = np.asarray(weights, np.float32)
+        if staleness is not None:  # FedBuff staleness scaling
+            w = w * aggregation.fedbuff_weights(staleness,
+                                                self.fed.staleness_exponent)
+        stacked = {k: torch.stack([d[k] for d in deltas]) for k in deltas[0]}
+        mean_delta = aggregation.weighted_mean_deltas(
+            stacked, torch.tensor(w, dtype=torch.float32, device=self.device))
+        # FedAdam: the server "gradient" is the negative aggregated delta
+        grads = {k: -v for k, v in mean_delta.items()}
+        with torch.no_grad():
+            self.params, self.opt_state = self.opt.update(
+                grads, self.opt_state, self.params)
+        self.version += 1
+        self._push_history()
+
+    def eval_perplexity(self) -> float:
+        if self._eval_batch is None:
+            self._eval_batch = to_device(self.dataset.eval_batch(
+                self.run.eval_clients, batch_size=32), self.device)
+        with torch.no_grad():
+            loss = self.model.loss(self.params, self._eval_batch)[0]
+        return float(np.exp(np.clip(np.float32(loss.item()), 0, 20)))

@@ -1,0 +1,87 @@
+"""Builds the port's CUDA sources at first use and loads them with ctypes.
+
+Every ``kernels/*/csrc/*.cu`` is compiled on its own by ``nvcc`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), under ``build/kernels/`` at the repository root, named by a
+hash of the source and the flags so that an edited source is rebuilt and an
+unchanged one is loaded from the cache. ``build_all`` starts one ``nvcc``
+per source, all at once. Nothing here runs when the module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+# IEEE division and no fast math: the int8 codec is held bit-equal to its
+# plain version.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[Path]:
+    return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(srcs: List[Path] | None = None) -> Dict[str, Path]:
+    """Compile every source whose library is not cached, one ``nvcc`` per
+    source in parallel; returns {source stem: library path}. Raises with the
+    compiler's output if any build fails. The ptxas report (registers,
+    shared memory, spills) goes to ``<library>.log``."""
+    srcs = sources() if srcs is None else srcs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {s.stem: _target(s) for s in srcs}
+    procs = []
+    for s in srcs:
+        lib = out[s.stem]
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(s)]
+        procs.append((s, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for s, lib, tmp, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc failed on {s.name} (rc {p.returncode}):\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu`` (built if needed)."""
+    if stem not in _LOADED:
+        src = [s for s in sources() if s.stem == stem]
+        if len(src) != 1:
+            raise RuntimeError(f"no unique CUDA source named {stem}.cu")
+        _LOADED[stem] = ctypes.CDLL(str(build_all(src)[stem]))
+    return _LOADED[stem]
