@@ -30,7 +30,8 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture description; every field of the reference is kept so
-    configs convert both ways, though the port builds only ``charlm``."""
+    configs convert both ways, though the port builds only the ``charlm``
+    and ``dense`` families."""
 
     name: str
     family: str
@@ -60,6 +61,14 @@ class ModelConfig:
 
     def __post_init__(self):
         assert self.family in FAMILIES, self.family
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads:
+            return self.d_model // self.num_heads
+        return 0
 
     def param_count(self) -> int:
         """Counted from the port model's own parameter shapes."""

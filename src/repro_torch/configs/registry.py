@@ -1,11 +1,12 @@
 """--arch resolution for the port. Only architectures the port can build
-are listed; the reference's model zoo is not ported yet."""
+are listed; the rest of the reference's model zoo is not ported yet."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_charlm import CONFIG as _PAPER_CHARLM
+from repro_torch.configs.smollm_135m import CONFIG as _SMOLLM_135M
 
-_CONFIGS = {"paper-charlm": _PAPER_CHARLM}
+_CONFIGS = {"smollm-135m": _SMOLLM_135M, "paper-charlm": _PAPER_CHARLM}
 
 ALL_ARCHS = tuple(_CONFIGS)
 

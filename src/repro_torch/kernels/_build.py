@@ -6,6 +6,7 @@ takes seconds), under ``build/kernels/`` at the repository root, named by a
 hash of the source and the flags so that an edited source is rebuilt and an
 unchanged one is loaded from the cache. ``build_all`` starts one ``nvcc``
 per source, all at once. Nothing here runs when the module is imported.
+The checks every wrapper and dispatcher shares are here too.
 """
 from __future__ import annotations
 
@@ -17,10 +18,13 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 # IEEE division and no fast math: the int8 codec is held bit-equal to its
-# plain version.
+# plain version, and the attention kernels' expf and divisions to theirs
+# within the reference's f32 tolerances.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -85,3 +89,23 @@ def load(stem: str) -> ctypes.CDLL:
             raise RuntimeError(f"no unique CUDA source named {stem}.cu")
         _LOADED[stem] = ctypes.CDLL(str(build_all(src)[stem]))
     return _LOADED[stem]
+
+
+def on_cuda(t: torch.Tensor, op: str) -> bool:
+    """Dispatch rule of every ``ops`` module: a CUDA tensor takes the
+    kernel, a CPU tensor the plain version, anything else raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{op}: unsupported device {t.device}")
+
+
+def check_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+
+
+def raise_if_failed(kernel: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_cuda, raise_if_failed
 
 LAUNCHES = {"int8_quantize": 0, "int8_dequant_accumulate": 0}
 
@@ -45,23 +46,13 @@ def _check_block(block: int) -> None:
                          f"per block), got {block}")
 
 
-def _check_cuda(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-
-
-def _raise_if_failed(kernel: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-
-
 def quantize(x: torch.Tensor, block: int = 256
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: x of any shape (f32, or bf16 cast to f32 first) -> (q int8
     (nb, block), scales f32 (nb,)), nb = ceil(numel / block); the ragged
     tail is zero-padded inside the kernel."""
     _check_block(block)
-    _check_cuda("x", x)
+    check_cuda("x", x)
     flat = x.float().contiguous().reshape(-1)
     n = flat.numel()
     nb = -(-n // block)
@@ -71,7 +62,7 @@ def quantize(x: torch.Tensor, block: int = 256
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().int8_quantize(flat.data_ptr(), q.data_ptr(), s.data_ptr(),
                                    n, block, nb, stream)
-    _raise_if_failed("int8_quantize", err)
+    raise_if_failed("int8_quantize", err)
     LAUNCHES["int8_quantize"] += 1
     return q, s
 
@@ -83,7 +74,7 @@ def dequant_accumulate(acc: Optional[torch.Tensor], q: torch.Tensor,
     ``acc=None`` reads as zeros, which with ``weight=1`` is the dequantize
     exactly (0 + 1 * v == v)."""
     _check_block(block)
-    _check_cuda("q", q)
+    check_cuda("q", q)
     if q.dtype != torch.int8 or q.dim() != 2 or q.shape[1] != block:
         raise ValueError(f"q must be int8 (nb, {block}), got {q.dtype} "
                          f"{tuple(q.shape)}")
@@ -108,6 +99,6 @@ def dequant_accumulate(acc: Optional[torch.Tensor], q: torch.Tensor,
         err = _lib().int8_dequant_accumulate(
             None if acc is None else acc.data_ptr(), q.data_ptr(),
             s.data_ptr(), float(weight), out.data_ptr(), n, block, stream)
-    _raise_if_failed("int8_dequant_accumulate", err)
+    raise_if_failed("int8_dequant_accumulate", err)
     LAUNCHES["int8_dequant_accumulate"] += 1
     return out

@@ -7,16 +7,13 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels._build import on_cuda
 from repro_torch.kernels.int8_quant import kernel as K
 from repro_torch.kernels.int8_quant import ref as R
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"int8 codec: unsupported device {t.device}")
+    return on_cuda(t, "int8 codec")
 
 
 def quantize(x: torch.Tensor, block: int = 256

@@ -26,7 +26,7 @@ from repro_torch.federated import RealLearner
 from repro_torch.launch import train
 
 
-def _kind(name: str) -> str:
+def kernel_kind(name: str) -> str:
     n = name.lower()
     if "int8_" in n:
         return "int8 codec (K1/K2)"
@@ -88,7 +88,7 @@ def main() -> int:
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.device_time_total
-            by_kind[_kind(e.name)] += us / 1e6
+            by_kind[kernel_kind(e.name)] += us / 1e6
             by_name[e.name] += us / 1e6
             launches += 1
     busy = sum(by_kind.values())

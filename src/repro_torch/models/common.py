@@ -1,5 +1,7 @@
 """Shared layer library of the port: the part of the reference's
-``models/common.py`` that the char-CNN-LSTM needs.
+``models/common.py`` that the char-CNN-LSTM and the dense transformer need.
+Attention goes through the hand-written kernels' ``ops`` (K3 for prefill,
+K4 for decode), which take their plain versions on CPU tensors.
 
 Params are FLAT dicts ``{"path/to/weight": tensor}`` with the reference's
 keys, plus a parallel dict of logical axes built at init time.
@@ -11,6 +13,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.decode_attention import ops as _decode_ops
+from repro_torch.kernels.swa_attention import ops as _attn_ops
 
 Params = Dict[str, torch.Tensor]
 Axes = Dict[str, Tuple[Optional[str], ...]]
@@ -93,3 +98,65 @@ def lm_loss(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         else:
             tot = tot + _chunk_nll_sum(*args)
     return tot / torch.clamp(torch.sum(m), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """RMSNorm computed in f32, returned in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * gamma.float()).to(dt)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> cos/sin of shape (..., head_dim // 2)."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """Rotate-half RoPE. x: (..., S, H, D); cos/sin: (..., S, D // 2),
+    broadcast over heads."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return (swish(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# Attention (K3 / K4)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B,S,Hq,D); k/v: (B,S,Hkv,D) -> (B,S,Hq,D). Online-softmax
+    attention, causal or sliding-window (window > 0) or non-causal; the
+    kernel picks its own tiles and takes any S."""
+    return _attn_ops.attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid_len) -> torch.Tensor:
+    """One query position per head against a (B,C,Hkv,D) cache; slots at or
+    past valid_len (an int, or a (B,) tensor) are masked -> (B,Hq,D)."""
+    return _decode_ops.decode_attention(q, k_cache, v_cache, valid_len)

@@ -1,12 +1,15 @@
 """Model construction + parameter accounting for the families the port
-builds (only ``charlm`` so far)."""
+builds (``charlm`` and ``dense`` so far)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import CHARLM, ModelConfig
+from repro_torch.configs.base import CHARLM, DENSE, ModelConfig
 
 
-def get_model(cfg: ModelConfig):
+def get_model(cfg: ModelConfig, *, decode_window: int = 0):
     from repro_torch.models.charlm import CharLM
+    from repro_torch.models.transformer import DecoderLM
+    if cfg.family == DENSE:
+        return DecoderLM(cfg, decode_window=decode_window)
     if cfg.family == CHARLM:
         return CharLM(cfg)
     raise NotImplementedError(
