@@ -14,11 +14,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      64) and the reference's kernel test cases (windows, non-causal, bf16, a
      ragged S, strided inputs); K4 (decode attention) at the serving shape
      (8 x 1088 slots, ragged valid lengths 1025..1088) and the reference's
-     cases (valid_len 1, ragged, bf16);
+     cases (valid_len 1, ragged, bf16); K5 (WKV) at the prefill shape (8,
+     1024, 64 heads, 64) with model-scale inputs, at the decode shape (T 1,
+     the state updated in place), the reference's 4 kernel cases in f32 and
+     bf16, ragged T 1000 and 37, strided views of one fused tensor with one
+     u per panel;
   4. time each kernel, its plain version and (K3/K4) the one PyTorch call
      that computes the same function, with CUDA events, in turns (plain,
-     kernel, kernel, plain), at the shapes of the main paths;
-  5. drive the port's two main paths, each with the kernels' launch counts
+     kernel, kernel, plain), at the shapes of the main paths; K4 and K5
+     also inside a CUDA graph (device time, no host);
+  5. drive the port's three main paths, each with the kernels' launch counts
      reset just before and read just after:
      a. ``repro_torch.launch.train``: 3 sync FedAvg rounds of paper-charlm
         at full width (15,560,704 params), concurrency 20, goal 16, seq_len
@@ -27,13 +32,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      b. ``repro_torch.launch.serve``: smollm-135m at full width (30 layers,
         134,515,008 params, f32), 8 requests of 1024 prompt tokens, then 64
         greedy tokens each; exactly 30 K3 and 30 x 64 K4 launches;
+     c. ``repro_torch.launch.serve``: rwkv6-7b at full width (32 layers,
+        7,576,621,056 params, f32), the same 8 requests and 64 tokens;
+        exactly 32 + 32 x 64 K5 launches and no K3/K4;
   6. check the outputs: finite perplexities, and on a small config one
      round on the card agrees with the same round on the CPU (plain
      versions of the kernels); generated tokens in the vocabulary and
      finite logits; at full width prefill(t[:-1]) + decode(t[-1]) equals
      the full forward's last logits (atol 2e-3 + rtol 2e-3, with wq/wk/wv
-     at 1/sqrt(d_model): see ``serve_consistency``); a small serve on the
-     card gives the CPU's tokens.
+     at 1/sqrt(d_model): see ``serve_consistency``), and for rwkv6-7b (at
+     full width, 4 layers, under the reference's init and a rescaled one)
+     also the carried states equal the full prompt's (see
+     ``rwkv_consistency``); a small serve of each model on the card gives
+     the CPU's tokens.
 
 Before the last line it prints the kernels as one JSON object and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -57,12 +68,14 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 rate without tensor cores
 ROUNDS, CONCURRENCY, GOAL, SEQ_LEN, BATCH = 3, 20, 16, 64, 16
 BLOCK = 256                    # FederatedConfig.quant_block
 SERVE_ARCH, SERVE_BATCH, PROMPT_LEN, GEN = "smollm-135m", 8, 1024, 64
+RWKV_ARCH, RWKV_CHECK_LAYERS = "rwkv6-7b", 4
 SEED = 0
 TPU_KERNELS = {                # kernel -> the TPU function it replaces
     "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:32",
     "int8_dequant_accumulate": "src/repro/kernels/int8_quant/kernel.py:68",
     "swa_attention": "src/repro/kernels/swa_attention/kernel.py:78",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:55",
+    "wkv": "src/repro/kernels/wkv/kernel.py:49",
 }
 CU_SOURCES = {
     "int8_quantize": "src/repro_torch/kernels/int8_quant/csrc/int8_quant.cu",
@@ -72,6 +85,7 @@ CU_SOURCES = {
         "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
     "decode_attention":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "wkv": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
 }
 CHECKS = {                     # what phase 3 held each kernel to (passed)
     "int8_quantize": "q bit-equal, scales rtol 1e-6; 24 leaf shapes alone "
@@ -86,6 +100,11 @@ CHECKS = {                     # what phase 3 held each kernel to (passed)
                         "ragged valid 1025..1088 in f32 and bf16, the "
                         "reference's 3 cases (full, ragged, valid 1), a "
                         "scalar valid_len, C 100",
+    "wkv": "o and S_T within 3e-5 (f32) / 3e-2 (bf16) times max(1, the "
+           "plain version's largest entry); prefill shape at model scale "
+           "(r/k/v std 8), decode shape T 1 with the state in place, the "
+           "reference's 4 cases in f32 and bf16, ragged T 1000 and 37, "
+           "strided views with one u per panel",
 }
 # K3 cases: B, S, Hq, Hkv, D, window, causal (the reference's kernel tests,
 # non-causal, then ragged S)
@@ -97,6 +116,10 @@ ATTN_CASES = [(1, 64, 2, 2, 32, 0, True), (2, 128, 4, 2, 64, 0, True),
 # K4 cases: B, C, Hq, Hkv, D, valid ("full", "ragged", "one")
 DECODE_CASES = [(2, 128, 4, 2, 64, "full"), (3, 256, 8, 1, 32, "ragged"),
                 (1, 64, 2, 2, 128, "one"), (2, 100, 9, 3, 64, "ragged")]
+# K5 cases: BH, T, D (the reference's kernel tests), then B, T, H, D ragged
+WKV_CASES = [(1, 32, 16), (2, 64, 32), (3, 128, 64), (2, 96, 32)]
+WKV_RAGGED = [(2, 1000, 8, 64), (2, 37, 4, 32)]
+WKV_HEADS, WKV_D = 64, 64          # rwkv6-7b: 64 heads of 64
 
 
 def fail(msg: str) -> int:
@@ -427,12 +450,135 @@ def time_attention(dev, gen):
     return out
 
 
+# ---------------------------------------------------------------------- WKV
+def _wkv_model_scale(B, T, dev, gen):
+    """Inputs at the scale the reference's init gives the model: r, k, v
+    with standard deviation 8 (wr/wk/wv at 1/sqrt(heads)), w =
+    exp(-exp(normal)) as ``_decay`` makes it, u normal (zero at init, drawn
+    here so that the bonus term is checked)."""
+    import torch
+    H, D = WKV_HEADS, WKV_D
+    r, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev) * 8
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, T, H, D, generator=gen,
+                                         device=dev)))
+    return r, k, v, w, torch.randn(H, D, generator=gen, device=dev)
+
+
+def _wkv_unit_scale(shape, u_shape, dtype, dev, gen):
+    """tests/test_kernels_wkv.py's draws: r, k, v at 0.3, w =
+    sigmoid(normal), u at 0.1, a state at 0.1."""
+    import torch
+    r, k, v = ((torch.randn(shape, generator=gen, device=dev) * 0.3)
+               .to(dtype) for _ in range(3))
+    w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    u = (torch.randn(u_shape, generator=gen, device=dev) * 0.1).to(dtype)
+    B, _, H, D = shape
+    s0 = torch.randn(B, H, D, D, generator=gen, device=dev) * 0.1
+    return r, k, v, w, u, s0
+
+
+def check_wkv(dev, gen):
+    """K5 against its plain version: o and the final state each within
+    tol x max(1, the plain version's largest entry), so that the
+    tolerance follows the tensors' scale; returns the max abs errors, f32
+    and bf16 apart, and the same over the scale."""
+    import torch
+    from repro_torch.kernels.wkv import kernel as WK
+    from repro_torch.kernels.wkv import ref as WR
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {}
+
+    def check(args, tol, what):
+        r, s0 = args[0], args[5]
+        o0, sT0 = WR.wkv_batched_ref(*args)
+        state = s0.clone()
+        o, out = WK.wkv(*args[:5], state)
+        if out is not state:
+            raise Failed("wkv did not return the state it was given")
+        e_o = float((o.float() - o0.float()).abs().max())
+        e_s = float((state - sT0).abs().max())
+        sc_o = max(1.0, float(o0.float().abs().max()))
+        sc_s = max(1.0, float(sT0.abs().max()))
+        if not (o.dtype == r.dtype and e_o <= tol * sc_o
+                and e_s <= tol * sc_s):
+            raise Failed(f"wkv differs at {what} ({r.dtype}): max abs err "
+                         f"o {e_o} (scale {sc_o}), state {e_s} (scale "
+                         f"{sc_s}), tolerance {tol} x scale")
+        key = "wkv" if r.dtype == f32 else "wkv_bf16"
+        err[key] = max(err.get(key, 0.0), e_o, e_s)
+        err[f"{key}_over_scale"] = max(err.get(f"{key}_over_scale", 0.0),
+                                       e_o / sc_o, e_s / sc_s)
+        return sT0
+
+    B, T, H, D = SERVE_BATCH, PROMPT_LEN, WKV_HEADS, WKV_D
+    r, k, v, w, u = _wkv_model_scale(B, T, dev, gen)
+    sT = check((r, k, v, w, u, torch.zeros(B, H, D, D, device=dev)), 3e-5,
+               "the prefill shape")
+    # a decode step from the prefill's state, written in place
+    rd, kd, vd, wd, _ = _wkv_model_scale(B, 1, dev, gen)
+    check((rd, kd, vd, wd, u, sT), 3e-5, "the decode shape")
+    for BH, T_, D_ in WKV_CASES:        # (BH, T, D) as B = BH, H = 1
+        for dtype in (f32, bf16):
+            check(_wkv_unit_scale((BH, T_, 1, D_), (BH, 1, D_), dtype, dev,
+                                  gen), 3e-5 if dtype == f32 else 3e-2,
+                  (BH, T_, D_))
+    for B_, T_, H_, D_ in WKV_RAGGED:
+        check(_wkv_unit_scale((B_, T_, H_, D_), (H_, D_), f32, dev, gen),
+              3e-5, (B_, T_, H_, D_))
+    # r, k, v, w as strided views of one fused tensor, one u per panel
+    fused = torch.randn(2, 300, 8, 4, 64, generator=gen, device=dev) * 0.3
+    r, k, v, wl = fused.unbind(3)
+    u = torch.randn(2, 8, 64, generator=gen, device=dev) * 0.1
+    s0 = torch.randn(2, 8, 64, 64, generator=gen, device=dev) * 0.1
+    check((r, k, v, torch.sigmoid(wl), u, s0), 3e-5, "strided views")
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] wkv: prefill and decode shapes at model scale, "
+          f"{len(WKV_CASES)} reference cases x (f32, bf16), "
+          f"{len(WKV_RAGGED)} ragged T, strided views; max abs err {err}")
+    return err
+
+
+def time_wkv(dev, gen):
+    """K5 at the prefill shape (8, 1024, 64, 64) and the decode shape (T 1):
+    eager in turns with its plain version, and its device time in a CUDA
+    graph. No single PyTorch call computes WKV."""
+    import torch
+    from repro_torch.kernels.wkv import kernel as WK
+    from repro_torch.kernels.wkv import ref as WR
+    out = {}
+    for name, T, reps in (("prefill", PROMPT_LEN, 3), ("decode", 1, 50)):
+        B, H, D = SERVE_BATCH, WKV_HEADS, WKV_D
+        r, k, v, w, u = _wkv_model_scale(B, T, dev, gen)
+        s_plain = torch.zeros(B, H, D, D, device=dev)
+        s_kernel = torch.zeros(B, H, D, D, device=dev)
+        ms, plain = in_turns(
+            lambda: WR.wkv_batched_ref(r, k, v, w, u, s_plain),
+            lambda: WK.wkv(r, k, v, w, u, s_kernel), reps)
+        graph = graph_time_ms(lambda: WK.wkv(r, k, v, w, u, s_kernel),
+                              10 if T > 1 else 50)
+        nbytes = r.element_size() * 5 * r.numel() + 4 * (
+            2 * s_kernel.numel() + u.numel())
+        b, by = bound(4 * D * D * B * T * H, nbytes)
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                         graph_ms=graph, shape=[B, T, H, D])
+        print(f"[chip_smoke] wkv at the {name} shape {[B, T, H, D]}: "
+              f"{ms:.4f} ms eager, {graph:.4f} ms in a CUDA graph (plain "
+              f"{plain:.4f}, bound {b:.4f} by {by})")
+    pre = out["prefill"]
+    return {"wkv": dict(
+        ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+        bound_by=pre["bound_by"], library_ms=None, graph_ms=pre["graph_ms"],
+        shape=pre["shape"], decode=out["decode"])}
+
+
 # ----------------------------------------------------------------- counters
 def _counters():
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.int8_quant import kernel as K
     from repro_torch.kernels.swa_attention import kernel as AK
-    return (K, AK, DK)
+    from repro_torch.kernels.wkv import kernel as WK
+    return (K, AK, DK, WK)
 
 
 def reset_launches() -> None:
@@ -487,10 +633,17 @@ def serve_path(dev):
     launches = read_launches()
     print(f"[chip_smoke] launches on the serve path: {launches}")
     want = {"swa_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * GEN}
+            "decode_attention": cfg.num_layers * GEN, "wkv": 0}
+    check_served(res, cfg, launches, want)
+    return res, launches
+
+
+def check_served(res, cfg, launches, want) -> None:
+    """Exact launch counts, tokens in the vocabulary and finite logits."""
+    import torch
     for name, n in want.items():
         if launches[name] != n:
-            raise Failed(f"expected {n} {name} launches on the serve path, "
+            raise Failed(f"expected {n} {name} launches serving {cfg.name}, "
                          f"got {launches[name]}")
     toks = res.tokens
     if tuple(toks.shape) != (SERVE_BATCH, GEN) or int(toks.min()) < 0 or \
@@ -498,12 +651,31 @@ def serve_path(dev):
         raise Failed(f"generated tokens {tuple(toks.shape)} outside "
                      f"[0, {cfg.vocab_size})")
     if not bool(torch.isfinite(res.logits).all()):
-        raise Failed("serve path logits are not finite")
-    print(f"[chip_smoke] serve: prefill {res.prefill_s:.4f} s "
+        raise Failed(f"{cfg.name} serve logits are not finite")
+    print(f"[chip_smoke] serve {cfg.name}: prefill {res.prefill_s:.4f} s "
           f"({SERVE_BATCH} x {PROMPT_LEN} tokens), decode {res.decode_s:.4f} "
           f"s for {GEN} steps ({res.tokens_per_s:.1f} tokens/s); sample "
           f"{toks[0, :8].tolist()}")
-    return res, launches
+
+
+def rwkv_serve_path(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config(RWKV_ARCH)
+    if cfg.param_count() != 7_576_621_056 or cfg.num_layers != 32:
+        raise Failed("rwkv serve path is not at rwkv6-7b's full width")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = serve.run(RWKV_ARCH, reduced=False, batch=SERVE_BATCH,
+                    prompt_len=PROMPT_LEN, gen=GEN, device=dev, seed=SEED)
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"[chip_smoke] launches on the rwkv serve path: {launches}; "
+          f"serve.run took {run_s:.1f} s, the init included")
+    want = {"wkv": cfg.num_layers * (1 + GEN), "swa_attention": 0,
+            "decode_attention": 0}
+    check_served(res, cfg, launches, want)
+    return res, launches, run_s
 
 
 # ------------------------------------------------------------------ outputs
@@ -581,18 +753,87 @@ def serve_consistency(dev):
     return out
 
 
-def small_serve(dev):
+def rwkv_consistency(dev):
+    """The reference's decode check for rwkv6-7b at full width (d_model
+    4096, 64 heads, d_ff 14336, vocab 65536) and RWKV_CHECK_LAYERS layers
+    (phase 5c runs all 32): prefill(t[:-1]) + decode_step(t[-1]) against
+    the full forward's last-position logits, and the states it carries
+    (WKV and both token shifts) against the full prompt's. The two paths
+    run K5 over 1023 steps and then 1, against 1024 in one launch, and
+    cuBLAS over other row counts.
+
+    As for smollm-135m (``serve_consistency``), the reference's init draws
+    the (d, H, hd) projections wr/wk/wv/wg at 1/sqrt(heads), not
+    1/sqrt(d_model): r, k and v have standard deviations near 8. Both inits
+    are run, printed and held (logits atol 2e-3 + rtol 2e-3, each state
+    within 2e-3 of its largest entry), each beside the change of the logits
+    under a relative input noise of 1e-7 (one f32 rounding), which says how
+    far any two f32 implementations can agree: unlike smollm's, this model
+    is not chaotic under the reference's init at this depth (the per-head
+    group norm rescales o)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = dataclasses.replace(get_config(RWKV_ARCH),
+                              num_layers=RWKV_CHECK_LAYERS)
+    model = get_model(cfg)
+    g = torch.Generator().manual_seed(SEED + 1)
+    params, _ = model.init(g, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN),
+                         generator=g).to(dev)
+    noise = (1 + 1e-7 * torch.randn(SERVE_BATCH, PROMPT_LEN, cfg.d_model,
+                                    generator=g)).to(dev)
+
+    def forward(x):
+        states, _ = model._zero_states(SERVE_BATCH, x.dtype, dev)
+        x, states = model._stack(params, x, states)
+        return model.logits(params, x[:, -1:])[:, 0], states
+
+    out, held = {}, {}
+    for init in ("reference", "rescaled"):
+        if init == "rescaled":
+            for w in ("wr", "wk", "wv", "wg"):
+                t = params[f"blocks/{w}"]
+                t *= math.sqrt(t.shape[-2] / t.shape[1])
+        with torch.no_grad():
+            e = params["embed"][toks]
+            full, full_st = forward(e)
+            noisy, _ = forward(e * noise)
+            _, cache = model.prefill(params, toks[:, :-1])
+            dec, cache = model.decode_step(params, cache, toks[:, -1])
+        st_err = {k: float((cache[k] - full_st[k]).abs().max())
+                  for k in ("wkv", "tm_tok", "cm_tok")}
+        st_max = {k: float(full_st[k].abs().max()) for k in st_err}
+        out[init] = {"max_abs_err": float((dec - full).abs().max()),
+                     "noise_1e-7_max_abs_change":
+                         float((noisy - full).abs().max()),
+                     "logits_max_abs": float(full.abs().max()),
+                     "state_max_abs_err": st_err, "state_max_abs": st_max}
+        held[init] = bool(torch.allclose(dec, full, atol=2e-3, rtol=2e-3)) \
+            and all(st_err[k] <= 2e-3 * max(1.0, st_max[k]) for k in st_err)
+        print(f"[chip_smoke] rwkv6-7b at full width, {RWKV_CHECK_LAYERS} "
+              f"layers, {init} init: prefill(t[:-1]) + decode(t[-1]) vs "
+              f"full forward {out[init]}")
+    for init, ok in held.items():
+        if not ok:
+            raise Failed(f"rwkv prefill + decode differs from the full "
+                         f"forward under the {init} init: {out[init]}")
+    return out
+
+
+def small_serve(dev, arch):
     import torch
     from repro_torch.launch import serve
     kw = dict(reduced=True, batch=2, prompt_len=16, gen=8, seed=SEED)
-    card = serve.run(SERVE_ARCH, device=dev, **kw)
-    cpu = serve.run(SERVE_ARCH, device="cpu", **kw)
+    card = serve.run(arch, device=dev, **kw)
+    cpu = serve.run(arch, device="cpu", **kw)
     if not torch.equal(card.tokens, cpu.tokens):
-        raise Failed(f"small serve: card tokens {card.tokens.tolist()} vs "
-                     f"CPU {cpu.tokens.tolist()}")
+        raise Failed(f"small serve of {arch}: card tokens "
+                     f"{card.tokens.tolist()} vs CPU {cpu.tokens.tolist()}")
     e = float((card.logits.cpu() - cpu.logits).abs().max())
-    print(f"[chip_smoke] small serve: card tokens equal the CPU's; last "
-          f"logits max abs diff {e:.3g}")
+    print(f"[chip_smoke] small serve of {arch}: card tokens equal the CPU's; "
+          f"last logits max abs diff {e:.3g}")
 
 
 def main() -> int:
@@ -634,10 +875,12 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         err = check_int8(dev, gen, leaf_shapes)
         err.update(check_attention(dev, gen))
+        err.update(check_wkv(dev, gen))
 
         phase("4. timing at the main paths' shapes")
         timing = time_int8(dev, gen, leaf_shapes)
         timing.update(time_attention(dev, gen))
+        timing.update(time_wkv(dev, gen))
         for name in ("int8_quantize", "int8_dequant_accumulate"):
             t = timing[name]
             print(f"[chip_smoke] {name}: {t['ms']:.4f} ms per round's "
@@ -648,26 +891,33 @@ def main() -> int:
         records, train_launches, fed = train_path(dev, cfg, leaf_shapes)
         phase("5b. main path: repro_torch.launch.serve at full width")
         res, serve_launches = serve_path(dev)
+        phase("5c. main path: repro_torch.launch.serve, rwkv6-7b at full "
+              "width")
+        rwkv_res, rwkv_launches, rwkv_run_s = rwkv_serve_path(dev)
 
         phase("6. outputs")
         small_round(dev, fed)
         consistency = serve_consistency(dev)
-        small_serve(dev)
+        rwkv_consistent = rwkv_consistency(dev)
+        small_serve(dev, SERVE_ARCH)
+        small_serve(dev, RWKV_ARCH)
     except Failed as e:
         return fail(str(e))
 
     launches = {**{k: train_launches[k] for k in ("int8_quantize",
                                                   "int8_dequant_accumulate")},
                 **{k: serve_launches[k] for k in ("swa_attention",
-                                                  "decode_attention")}}
+                                                  "decode_attention")},
+                "wkv": rwkv_launches["wkv"]}
     kernels = []
     for name, src in TPU_KERNELS.items():
         t = timing[name]
         extra = {k: v for k, v in t.items()
                  if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")}
-        if f"{name}_bf16" in err:
-            extra["max_abs_err_bf16"] = err[f"{name}_bf16"]
+        for suffix in ("_bf16", "_over_scale", "_bf16_over_scale"):
+            if f"{name}{suffix}" in err:
+                extra[f"max_abs_err{suffix}"] = err[f"{name}{suffix}"]
         kernels.append({
             "name": name, "route": "cuda", "source": CU_SOURCES[name],
             "replaces": src, "launches": launches[name],
@@ -681,6 +931,12 @@ def main() -> int:
         "gen": GEN, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
         "tokens_per_s": res.tokens_per_s,
         "prefill_plus_decode_vs_full_forward": consistency}}))
+    print(json.dumps({"serve_rwkv": {
+        "arch": RWKV_ARCH, "params": rwkv_res.config.param_count(),
+        "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN, "gen": GEN,
+        "prefill_s": rwkv_res.prefill_s, "decode_s": rwkv_res.decode_s,
+        "tokens_per_s": rwkv_res.tokens_per_s, "run_s": rwkv_run_s,
+        "prefill_plus_decode_vs_full_forward": rwkv_consistent}}))
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,8 +30,8 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture description; every field of the reference is kept so
-    configs convert both ways, though the port builds only the ``charlm``
-    and ``dense`` families."""
+    configs convert both ways, though the port builds only the ``charlm``,
+    ``dense`` and ``ssm`` families."""
 
     name: str
     family: str

@@ -1,18 +1,20 @@
-"""Where the time of serving smollm-135m at full width goes, on the card.
+"""Where the time of serving a model at full width goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch rwkv6-7b
 
-Runs the serving configuration of ``chip_smoke.py``'s main path
-(smollm-135m, f32, 8 prompts of 1024 tokens, 64 greedy tokens, a cache of
-1088 slots): one warm-up prefill and decode, then a prefill and the 64
-decode steps timed with the device synchronised at their ends, then one
-prefill and 16 decode steps under ``torch.profiler``, whose device events
-give the kernel time by kind, the device's busy share and the device
-events per decode step. Prints one JSON object as its last line. Needs a
-CUDA device.
+Runs the serving configuration of ``chip_smoke.py``'s main paths (f32, 8
+prompts of 1024 tokens, 64 greedy tokens; smollm-135m by default, with a
+cache of 1088 slots, or rwkv6-7b): one warm-up prefill and decode, then a
+prefill and the 64 decode steps timed with the device synchronised at their
+ends, then one prefill and 16 decode steps under ``torch.profiler``, whose
+device events give the kernel time by kind, the device's busy share and the
+device events per decode step. Prints one JSON object as its last line.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from collections import defaultdict
@@ -24,10 +26,12 @@ from repro_torch.configs import get_config
 from repro_torch.launch.profile_round import kernel_kind
 from repro_torch.models import get_model
 
-ARCH, BATCH, PROMPT_LEN, GEN, PROFILED_STEPS = "smollm-135m", 8, 1024, 64, 16
+BATCH, PROMPT_LEN, GEN, PROFILED_STEPS = 8, 1024, 64, 16
 
 
 def _serve_kind(name: str) -> str:
+    if "wkv_fwd" in name:
+        return "WKV (K5)"
     if "swa_attention" in name:
         return "flash attention (K3)"
     if "decode_partial" in name or "decode_combine" in name:
@@ -49,10 +53,14 @@ def _device_time(prof, wall_s: float) -> dict:
             "device_s_by_kind": dict(by_kind)}
 
 
-def main() -> int:
+def main(argv: list | None = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--arch", default="smollm-135m",
+                   help="smollm-135m (default) or rwkv6-7b, at full width")
+    arch = p.parse_args(argv).arch
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = get_model(cfg)
     g = torch.Generator().manual_seed(0)
     params, _ = model.init(g, device=dev)
@@ -89,7 +97,7 @@ def main() -> int:
     dec["device_events_per_step"] = dec["device_events"] / PROFILED_STEPS
     print(json.dumps({
         "device": torch.cuda.get_device_name(dev),
-        "config": {"arch": ARCH, "batch": BATCH, "prompt_len": PROMPT_LEN,
+        "config": {"arch": arch, "batch": BATCH, "prompt_len": PROMPT_LEN,
                    "gen": GEN, "params": cfg.param_count()},
         "prefill_s": prefill_s, "decode_s": decode_s,
         "decode_ms_per_step": decode_s / GEN * 1e3,

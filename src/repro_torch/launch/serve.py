@@ -1,10 +1,14 @@
 """Serving entry point of the port: batched prefill, then greedy
 autoregressive decode, on a model the port builds (``smollm-135m``, the
-default, or ``paper-charlm``). Prefill attention runs through K3 and every
-decode step's attention through K4 on the card.
+default, ``rwkv6-7b`` or ``paper-charlm``). On the card, smollm-135m's
+prefill attention runs through K3 and every decode step's attention
+through K4; rwkv6-7b's WKV recurrence runs through K5 for the prompt and
+for every decode step.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
       --batch 8 --prompt-len 1024 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --no-reduced --batch 8 --prompt-len 1024 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --batch 4 --prompt-len 12 --gen 8
 

@@ -1,7 +1,8 @@
 """Shared layer library of the port: the part of the reference's
-``models/common.py`` that the char-CNN-LSTM and the dense transformer need.
-Attention goes through the hand-written kernels' ``ops`` (K3 for prefill,
-K4 for decode), which take their plain versions on CPU tensors.
+``models/common.py`` that the char-CNN-LSTM, the dense transformer and
+RWKV6 need. Attention goes through the hand-written kernels' ``ops`` (K3
+for prefill, K4 for decode), which take their plain versions on CPU
+tensors.
 
 Params are FLAT dicts ``{"path/to/weight": tensor}`` with the reference's
 keys, plus a parallel dict of logical axes built at init time.
@@ -9,7 +10,7 @@ keys, plus a parallel dict of logical axes built at init time.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -48,8 +49,9 @@ class ParamBuilder:
         elif init == "normal":
             if scale is None:
                 scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
+            # scaled in place: one host copy of the largest weight, not two
             w = torch.randn(shape, generator=self.generator,
-                            dtype=self.dtype) * scale
+                            dtype=self.dtype).mul_(scale)
         elif init == "zeros":
             w = torch.zeros(shape, dtype=self.dtype)
         elif init == "ones":
@@ -63,6 +65,26 @@ class ParamBuilder:
 
     def build(self) -> Tuple[Params, Axes]:
         return self.params, self.axes
+
+
+def layer_params(params: Params) -> List[Dict[str, torch.Tensor]]:
+    """The stacked ``blocks/*`` params as one dict of views per layer."""
+    blocks = {k.split("/", 1)[1]: v for k, v in params.items()
+              if k.startswith("blocks/")}
+    n = next(iter(blocks.values())).shape[0]
+    return [{k: v[l] for k, v in blocks.items()} for l in range(n)]
+
+
+def project_heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", h, w) as one matrix product."""
+    d, H, hd = w.shape
+    return (h @ w.reshape(d, H * hd)).view(*h.shape[:-1], H, hd)
+
+
+def merge_heads(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") (or "bhk,hkd->bd") as one matrix product."""
+    H, hd, d = w.shape
+    return a.reshape(*a.shape[:-2], H * hd) @ w.reshape(H * hd, d)
 
 
 def _chunk_nll_sum(xc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,

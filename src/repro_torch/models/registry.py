@@ -1,15 +1,18 @@
 """Model construction + parameter accounting for the families the port
-builds (``charlm`` and ``dense`` so far)."""
+builds (``charlm``, ``dense`` and ``ssm`` so far)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import CHARLM, DENSE, ModelConfig
+from repro_torch.configs.base import CHARLM, DENSE, SSM, ModelConfig
 
 
 def get_model(cfg: ModelConfig, *, decode_window: int = 0):
     from repro_torch.models.charlm import CharLM
+    from repro_torch.models.rwkv import RWKV6
     from repro_torch.models.transformer import DecoderLM
     if cfg.family == DENSE:
         return DecoderLM(cfg, decode_window=decode_window)
+    if cfg.family == SSM:
+        return RWKV6(cfg)
     if cfg.family == CHARLM:
         return CharLM(cfg)
     raise NotImplementedError(

@@ -12,7 +12,7 @@ reduces to the plain decode path), and the training loss.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -20,18 +20,6 @@ from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.models import common as cm
 
 Cache = Dict[str, object]   # {"k": tensor, "v": tensor, "pos": int}
-
-
-def _heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matrix product."""
-    d, H, hd = w.shape
-    return (h @ w.reshape(d, H * hd)).view(*h.shape[:-1], H, hd)
-
-
-def _merge(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") (or "bhk,hkd->bd") as one matrix product."""
-    H, hd, d = w.shape
-    return a.reshape(*a.shape[:-2], H * hd) @ w.reshape(H * hd, d)
 
 
 class DecoderLM:
@@ -74,14 +62,6 @@ class DecoderLM:
         return b.build()
 
     # ------------------------------------------------------------- forward
-    @staticmethod
-    def _layers(params: cm.Params) -> List[Dict[str, torch.Tensor]]:
-        """The stacked block params as one dict of views per layer."""
-        blocks = {k.split("/", 1)[1]: v for k, v in params.items()
-                  if k.startswith("blocks/")}
-        n = blocks["wq"].shape[0]
-        return [{k: v[l] for k, v in blocks.items()} for l in range(n)]
-
     def _layer(self, lp: Dict[str, torch.Tensor], x: torch.Tensor,
                positions_offset: int = 0
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -89,14 +69,14 @@ class DecoderLM:
         cache)."""
         cfg = self.cfg
         h = cm.rms_norm(x, lp["attn_norm"])
-        q, k, v = (_heads(h, lp[w]) for w in ("wq", "wk", "wv"))
+        q, k, v = (cm.project_heads(h, lp[w]) for w in ("wq", "wk", "wv"))
         pos = positions_offset + torch.arange(x.shape[1], device=x.device)
         cos, sin = cm.rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
         q = cm.apply_rope(q, cos, sin)
         k = cm.apply_rope(k, cos, sin)
         attn = cm.flash_attention(q, k, v, causal=True,
                                   window=cfg.sliding_window)
-        x = x + _merge(attn, lp["wo"])
+        x = x + cm.merge_heads(attn, lp["wo"])
         h = cm.rms_norm(x, lp["ffn_norm"])
         x = x + cm.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
         return x, (k, v)
@@ -108,7 +88,7 @@ class DecoderLM:
         """Run the layer stack. Where the reference's scan returns every
         layer's (k, v) stacked, here ``kv_sink(layer, k, v)`` receives them
         (prefill writes them straight into the cache)."""
-        for l, lp in enumerate(self._layers(params)):
+        for l, lp in enumerate(cm.layer_params(params)):
             x, (k, v) = self._layer(lp, x, positions_offset)
             if kv_sink is not None:
                 kv_sink(l, k, v)
@@ -184,16 +164,16 @@ class DecoderLM:
         cos, sin = cm.rope_angles(
             torch.arange(pos, pos + 1, device=x.device)[None],
             cfg.resolved_head_dim, cfg.rope_theta)             # (1, 1, hd/2)
-        for l, lp in enumerate(self._layers(params)):
+        for l, lp in enumerate(cm.layer_params(params)):
             h = cm.rms_norm(x, lp["attn_norm"])
-            q, k, v = (_heads(h, lp[w]) for w in ("wq", "wk", "wv"))
+            q, k, v = (cm.project_heads(h, lp[w]) for w in ("wq", "wk", "wv"))
             q = cm.apply_rope(q, cos, sin)
             k = cm.apply_rope(k, cos, sin)
             kc, vc = cache["k"][l], cache["v"][l]
             kc[:, write_idx] = k[:, 0].to(kc.dtype)
             vc[:, write_idx] = v[:, 0].to(vc.dtype)
             attn = cm.decode_attention(q[:, 0], kc, vc, valid)
-            x = x + _merge(attn, lp["wo"])[:, None, :]
+            x = x + cm.merge_heads(attn, lp["wo"])[:, None, :]
             h = cm.rms_norm(x, lp["ffn_norm"])
             x = x + cm.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
         cache["pos"] = pos + 1

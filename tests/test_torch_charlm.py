@@ -74,7 +74,7 @@ def test_config_roundtrip_and_registry():
     assert dataclasses.asdict(reduced(cfg, layers=1, d_model=32)) == \
         dataclasses.asdict(jreduced(jcfg, layers=1, d_model=32))
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("rwkv6-7b")
+        get_config("recurrentgemma-2b")
 
 
 def test_full_width_param_count():
