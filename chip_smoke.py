@@ -14,15 +14,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      64) and the reference's kernel test cases (windows, non-causal, bf16, a
      ragged S, strided inputs); K4 (decode attention) at the serving shape
      (8 x 1088 slots, ragged valid lengths 1025..1088) and the reference's
-     cases (valid_len 1, ragged, bf16); K5 (WKV) at the prefill shape (8,
-     1024, 64 heads, 64) with model-scale inputs, at the decode shape (T 1,
-     the state updated in place), the reference's 4 kernel cases in f32 and
-     bf16, ragged T 1000 and 37, strided views of one fused tensor with one
-     u per panel;
+     cases (valid_len 1, ragged, bf16), also replayed from a CUDA graph;
+     K5 (WKV) at the prefill shape (8, 1024, 64 heads, 64) with model-scale
+     inputs, at the decode shape (T 1, the state updated in place), the
+     reference's 4 kernel cases in f32 and bf16, ragged T 1000 and 37,
+     strided views of one fused tensor with one u per panel;
   4. time each kernel, its plain version and (K3/K4) the one PyTorch call
      that computes the same function, with CUDA events, in turns (plain,
-     kernel, kernel, plain), at the shapes of the main paths; K4 and K5
-     also inside a CUDA graph (device time, no host);
+     kernel, kernel, plain), at the shapes of the main paths: K3 in f32 and
+     bf16, each beside the bound of its tensor-core route (3xTF32, bf16
+     mma) and the old f32 SIMT bound; K4 and its library call over 30
+     distinct caches, one per layer as a decode step holds them (about
+     400 MB, cold in L2), eagerly and inside a CUDA graph (device time, no
+     host), and once on one cache warm in L2; K5 also inside a CUDA graph;
   5. drive the port's three main paths, each with the kernels' launch counts
      reset just before and read just after:
      a. ``repro_torch.launch.train``: 3 sync FedAvg rounds of paper-charlm
@@ -65,9 +69,16 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 rate without tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+# K3's route: how many products of the route's type one f32 product costs,
+# at which rate (3xTF32 splits each f32 product into three TF32 ones)
+K3_ROUTE = {"float32": ("3xtf32", 3, TF32_FLOPS_PER_S),
+            "bfloat16": ("bf16 mma", 1, BF16_FLOPS_PER_S)}
 ROUNDS, CONCURRENCY, GOAL, SEQ_LEN, BATCH = 3, 20, 16, 64, 16
 BLOCK = 256                    # FederatedConfig.quant_block
 SERVE_ARCH, SERVE_BATCH, PROMPT_LEN, GEN = "smollm-135m", 8, 1024, 64
+LAYERS = 30                    # smollm-135m: one K4 call a layer a step
 RWKV_ARCH, RWKV_CHECK_LAYERS = "rwkv6-7b", 4
 SEED = 0
 TPU_KERNELS = {                # kernel -> the TPU function it replaces
@@ -99,7 +110,8 @@ CHECKS = {                     # what phase 3 held each kernel to (passed)
     "decode_attention": "f32 atol 1e-5, bf16 3e-2; serving shape with "
                         "ragged valid 1025..1088 in f32 and bf16, the "
                         "reference's 3 cases (full, ragged, valid 1), a "
-                        "scalar valid_len, C 100",
+                        "scalar valid_len, C 100, 3 replays of a CUDA "
+                        "graph; arrival counters left at 0",
     "wkv": "o and S_T within 3e-5 (f32) / 3e-2 (bf16) times max(1, the "
            "plain version's largest entry); prefill shape at model scale "
            "(r/k/v std 8), decode shape T 1 with the state in place, the "
@@ -192,9 +204,11 @@ def graph_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, what bounds it) at the f32 SIMT rate and the HBM rate."""
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS_PER_S):
+    """(least ms, what bounds it): `flops` at the rate of the route the
+    kernel takes (the f32 SIMT rate unless given), `nbytes` at the HBM
+    rate."""
+    t_ops, t_bytes = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -374,16 +388,42 @@ def check_attention(dev, gen):
                        DK.decode_attention(q, kc, vc, 1000),
                        DR.decode_attention_ref(q, kc, vc, 1000), 1e-5,
                        "scalar valid_len 1000")
+                # replayed from a CUDA graph: the arrival counters are reset
+                # by every launch, so replays agree
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    got = DK.decode_attention(q, kc, vc, vl)
+                for _ in range(3):
+                    got.zero_()
+                    g.replay()
+                    record("decode_attention", dtype, got, want, 1e-5,
+                           "a CUDA graph's replay")
     torch.cuda.synchronize()
+    if any(int(c.abs().sum()) for c in DK._COUNTERS.values()):
+        raise Failed("decode_attention left an arrival counter non-zero")
     print(f"[chip_smoke] attention: K3 {1 + len(ATTN_CASES)} shapes x "
           f"(f32, bf16) + strided views, K4 {len(cases)} shapes x (f32, "
           f"bf16) + a scalar valid_len; max abs err {err}")
     return err
 
 
+def per_call_ms(fn, calls: int, reps: int, graph: bool) -> float:
+    """Time of one call when fn() makes `calls` calls: eager (CUDA events
+    around `reps` runs of fn) or its device time in a CUDA graph."""
+    t = graph_time_ms(fn, reps) if graph else cuda_time_ms(fn, reps)
+    return t / calls
+
+
 def time_attention(dev, gen):
     """K3 and K4 at the serving shapes: kernel, plain version and the
-    library call (scaled_dot_product_attention, timed here only)."""
+    library call (scaled_dot_product_attention, timed here only).
+
+    K3 is timed in f32 (the serve's type) and bf16, its bound at the rate
+    of the route it takes for that type (``K3_ROUTE``). K4 is timed as a
+    decode step meets it: over LAYERS distinct (k_cache, v_cache) pairs,
+    one per layer (about 400 MB at the serving shape, so each call finds its
+    cache cold in the 50 MB L2), eagerly and in a CUDA graph; the library
+    call the same way."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as DK
@@ -391,62 +431,99 @@ def time_attention(dev, gen):
     from repro_torch.kernels.swa_attention import kernel as AK
     from repro_torch.kernels.swa_attention import ref as AR
     B, S, Hq, Hkv, D = SERVE_BATCH, PROMPT_LEN, 9, 3, 64
-    q = torch.randn(B, S, Hq, D, generator=gen, device=dev)
-    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
-    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
-
-    def sdpa3():
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
-
-    lib_err3 = float((sdpa3() - AR.attention_ref(q, k, v)).abs().max())
-    k3_ms, k3_plain = in_turns(lambda: AR.attention_ref(q, k, v),
-                               lambda: AK.attention(q, k, v), 5)
-    k3_lib = cuda_time_ms(sdpa3, 5)
     pairs = B * Hq * S * (S + 1) // 2
-    b3, by3 = bound(4 * D * pairs, 4 * (2 * q.numel() + 2 * k.numel()))
+    k3 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
+
+        def sdpa3():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+
+        lib_err = float((sdpa3().float() - AR.attention_ref(q, k, v).float())
+                        .abs().max())
+        ms, plain = in_turns(lambda: AR.attention_ref(q, k, v),
+                             lambda: AK.attention(q, k, v), 5)
+        route, mult, rate = K3_ROUTE[str(dtype).split(".")[-1]]
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        b, by = bound(mult * 4 * D * pairs, nbytes, rate)
+        k3[dtype] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                         library_ms=cuda_time_ms(sdpa3, 5), math=route,
+                         bound_f32_simt_ms=bound(4 * D * pairs, nbytes)[0],
+                         library_max_abs_err=lib_err)
 
     C = S + GEN
+    caches = [(torch.randn(B, C, Hkv, D, generator=gen, device=dev),
+               torch.randn(B, C, Hkv, D, generator=gen, device=dev))
+              for _ in range(LAYERS)]
     qd = torch.randn(B, Hq, D, generator=gen, device=dev)
-    kc = torch.randn(B, C, Hkv, D, generator=gen, device=dev)
-    vc = torch.randn(B, C, Hkv, D, generator=gen, device=dev)
     vl = _serving_valid(dev)
     mask = (torch.arange(C, device=dev)[None, :] < vl[:, None])[:, None, None]
 
-    def sdpa4():
+    def sdpa4(kc, vc):
         return F.scaled_dot_product_attention(
             qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)[:, :, 0]
 
-    lib_err4 = float((sdpa4() - DR.decode_attention_ref(qd, kc, vc, vl))
-                     .abs().max())
-    k4_ms, k4_plain = in_turns(lambda: DR.decode_attention_ref(qd, kc, vc, vl),
-                               lambda: DK.decode_attention(qd, kc, vc, vl), 50)
-    k4_lib = cuda_time_ms(sdpa4, 50)
-    k4_graph = graph_time_ms(lambda: DK.decode_attention(qd, kc, vc, vl), 50)
+    kc0, vc0 = caches[0]
+    lib_err4 = float((sdpa4(kc0, vc0) - DR.decode_attention_ref(
+        qd, kc0, vc0, vl)).abs().max())
+
+    def step(fn):
+        return lambda: [fn(kc, vc) for kc, vc in caches]
+
+    kernel4 = step(lambda kc, vc: DK.decode_attention(qd, kc, vc, vl))
+    plain4 = step(lambda kc, vc: DR.decode_attention_ref(qd, kc, vc, vl))
+    k4_ms, k4_plain = in_turns(plain4, kernel4, 5)
+    k4_ms, k4_plain = k4_ms / LAYERS, k4_plain / LAYERS
+    k4_lib = per_call_ms(step(sdpa4), LAYERS, 5, graph=False)
+    k4_graph = per_call_ms(kernel4, LAYERS, 3, graph=True)
+    try:
+        k4_lib_graph = per_call_ms(step(sdpa4), LAYERS, 3, graph=True)
+    except RuntimeError as e:           # the library call did not capture
+        print(f"[chip_smoke] SDPA in a CUDA graph: not measured ({e})")
+        k4_lib_graph = None
+    # the old yardstick: one cache, warm in L2, for comparison only
+    k4_warm = graph_time_ms(lambda: DK.decode_attention(qd, kc0, vc0, vl), 50)
+    # what no byte pays for: every block launched, none reading (valid 0),
+    # and one block reading one tile (C 32, one group, no combine)
+    k4_empty = graph_time_ms(lambda: DK.decode_attention(qd, kc0, vc0, 0), 50)
+    q1, kc1, vc1 = qd[:1, :Hq // Hkv], kc0[:1, :32, :1], vc0[:1, :32, :1]
+    k4_one = graph_time_ms(lambda: DK.decode_attention(q1, kc1, vc1, 32), 50)
     slots = int(vl.sum())
     b4, by4 = bound(4 * D * Hq * slots,
                     4 * (2 * qd.numel() + 2 * slots * Hkv * D) + 4 * B)
     out = {
         "swa_attention": dict(
-            ms=k3_ms, plain_ms=k3_plain, bound_ms=b3, bound_by=by3,
-            library_ms=k3_lib, shape=[B, S, Hq, Hkv, D],
+            **k3[torch.float32], shape=[B, S, Hq, Hkv, D],
             library="scaled_dot_product_attention(is_causal, enable_gqa)",
-            library_max_abs_err=lib_err3),
+            bf16={k: v for k, v in k3[torch.bfloat16].items()
+                  if k != "bound_f32_simt_ms"}),
         "decode_attention": dict(
             ms=k4_ms, plain_ms=k4_plain, bound_ms=b4, bound_by=by4,
             library_ms=k4_lib, graph_ms=k4_graph,
-            shape=[B, C, Hq, Hkv, D], valid=vl.tolist(),
+            library_graph_ms=k4_lib_graph, warm_l2_graph_ms=k4_warm,
+            valid_0_graph_ms=k4_empty, one_tile_graph_ms=k4_one,
+            caches=LAYERS, shape=[B, C, Hq, Hkv, D], valid=vl.tolist(),
             library="scaled_dot_product_attention(bool mask, enable_gqa)",
             library_max_abs_err=lib_err4),
     }
-    for name, t in out.items():
-        print(f"[chip_smoke] {name}: {t['ms']:.4f} ms (plain "
+    for dtype, t in k3.items():
+        print(f"[chip_smoke] swa_attention {dtype}: {t['ms']:.4f} ms (plain "
               f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
-              f"{t['bound_ms']:.4f} by {t['bound_by']})")
-    print(f"[chip_smoke] decode_attention in a CUDA graph (device time, no "
-          f"host): {k4_graph:.4f} ms")
+              f"{t['bound_ms']:.4f} by {t['bound_by']} on {t['math']}; "
+              f"f32 SIMT bound {t['bound_f32_simt_ms']:.4f})")
+    lg = "not measured" if k4_lib_graph is None else f"{k4_lib_graph:.4f}"
+    print(f"[chip_smoke] decode_attention over {LAYERS} caches (cold in L2): "
+          f"{k4_ms:.4f} ms eager, {k4_graph:.4f} ms in a CUDA graph (plain "
+          f"{k4_plain:.4f}; library {k4_lib:.4f} eager, {lg} in a graph; "
+          f"bound {b4:.4f} by {by4}); one cache warm in L2, graph: "
+          f"{k4_warm:.4f}; valid_len 0 (no bytes read), graph: "
+          f"{k4_empty:.4f}; one block of one 32-slot tile, graph: "
+          f"{k4_one:.4f}")
     return out
 
 

@@ -2,10 +2,12 @@
 (``csrc/swa_attention.cu``).
 
 K3 ``attention`` replaces the TPU kernel ``flash_attention_pallas`` (the
-reference's ``kernels/swa_attention/kernel.py``). It takes CUDA tensors
-only, checks what the kernel cannot take, allocates the output, launches on
-PyTorch's current stream without synchronising, raises if the launch was
-refused, and adds one to ``LAUNCHES``.
+reference's ``kernels/swa_attention/kernel.py``): both products on the
+tensor cores, 3xTF32 for f32 inputs and bf16 mma for bf16 (see the
+source's note). It takes CUDA tensors only, checks what the kernel cannot
+take, allocates the output, launches on PyTorch's current stream without
+synchronising, raises if the launch was refused, and adds one to
+``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,27 @@ _i = ctypes.c_int
 
 def reset_launches() -> None:
     LAUNCHES["swa_attention"] = 0
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its address and strides are multiples of 16 bytes, as
+    the kernels' 16-byte cp.async copies need; else a contiguous copy (whose
+    rows of D >= 16 elements are)."""
+    es = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0
+                                      for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def run_on(dev: torch.device, launch):
+    """launch(stream) on dev's current PyTorch stream, with dev made the
+    current CUDA device only when it is not already."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return launch(stream)
+    with torch.cuda.device(dev):
+        return launch(stream)
 
 
 def _lib() -> ctypes.CDLL:
@@ -70,14 +93,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().swa_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, Hq,
-            Hkv, D, DTYPES[q.dtype], strides, int(causal), int(window),
-            1.0 / math.sqrt(D), stream)
+    lib = _lib()
+    err = run_on(q.device, lambda stream: lib.swa_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, Hq,
+        Hkv, D, DTYPES[q.dtype], strides, int(causal), int(window),
+        1.0 / math.sqrt(D), stream))
     raise_if_failed("swa_attention", err)
     LAUNCHES["swa_attention"] += 1
     return o
