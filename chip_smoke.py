@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   3. hold each kernel against its plain PyTorch version on the card: K1/K2
      (int8 codec) at every leaf shape of a full-width paper-charlm client
      delta and at the stacked cohort shapes (16, ...) the sync round gives
-     them; K3 (flash attention) at the serving shape (8, 1024, 9/3 heads,
+     them, each leaf alone and all 24 as one table (K1 bit-equal to the
+     per-leaf plain version), a ragged table and one longer than a launch
+     takes; K3 (flash attention) at the serving shape (8, 1024, 9/3 heads,
      64) and the reference's kernel test cases (windows, non-causal, bf16, a
      ragged S, strided inputs); K4 (decode attention) at the serving shape
      (8 x 1088 slots, ragged valid lengths 1025..1088) and the reference's
@@ -18,7 +20,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      K5 (WKV) at the prefill shape (8, 1024, 64 heads, 64) with model-scale
      inputs, at the decode shape (T 1, the state updated in place), the
      reference's 4 kernel cases in f32 and bf16, ragged T 1000 and 37,
-     strided views of one fused tensor with one u per panel;
+     strided views of one fused tensor with one u per panel, 3 replays of a
+     CUDA graph;
   4. time each kernel, its plain version and (K3/K4) the one PyTorch call
      that computes the same function, with CUDA events, in turns (plain,
      kernel, kernel, plain), at the shapes of the main paths: K3 in f32 and
@@ -26,13 +29,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      mma) and the old f32 SIMT bound; K4 and its library call over 30
      distinct caches, one per layer as a decode step holds them (about
      400 MB, cold in L2), eagerly and inside a CUDA graph (device time, no
-     host), and once on one cache warm in L2; K5 also inside a CUDA graph;
+     host), and once on one cache warm in L2; K5 also inside a CUDA graph,
+     and at the decode shape over 32 states, one per layer (cold in L2);
+     K1 over a round's table of 24 leaves eagerly and in a CUDA graph,
+     beside the per-leaf loop timed the same two ways, and the host wall
+     of ``compress_roundtrip`` for one round;
   5. drive the port's three main paths, each with the kernels' launch counts
      reset just before and read just after:
      a. ``repro_torch.launch.train``: 3 sync FedAvg rounds of paper-charlm
         at full width (15,560,704 params), concurrency 20, goal 16, seq_len
-        64, client batch 16, 8 client steps, int8 uplink; K1 and K2 must
-        have run there;
+        64, client batch 16, 8 client steps, int8 uplink; exactly one K1
+        and one K2 launch a round;
      b. ``repro_torch.launch.serve``: smollm-135m at full width (30 layers,
         134,515,008 params, f32), 8 requests of 1024 prompt tokens, then 64
         greedy tokens each; exactly 30 K3 and 30 x 64 K4 launches;
@@ -54,9 +61,17 @@ Before the last line it prints the kernels as one JSON object and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
+
+    python3 chip_smoke.py --time-only [--src CHECKOUT/src]
+
+runs phases 1, 2 and 4 only, on the port under ``--src`` (this checkout's
+by default; its kernels build into that checkout's ``build/kernels``), and
+prints the timings as one JSON line: the same yardstick for two checkouts,
+to be run in turns (A, B, B, A) in one call on one card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -80,6 +95,7 @@ BLOCK = 256                    # FederatedConfig.quant_block
 SERVE_ARCH, SERVE_BATCH, PROMPT_LEN, GEN = "smollm-135m", 8, 1024, 64
 LAYERS = 30                    # smollm-135m: one K4 call a layer a step
 RWKV_ARCH, RWKV_CHECK_LAYERS = "rwkv6-7b", 4
+RWKV_LAYERS = 32               # rwkv6-7b: one K5 call a layer a step
 SEED = 0
 TPU_KERNELS = {                # kernel -> the TPU function it replaces
     "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:32",
@@ -99,8 +115,11 @@ CU_SOURCES = {
     "wkv": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
 }
 CHECKS = {                     # what phase 3 held each kernel to (passed)
-    "int8_quantize": "q bit-equal, scales rtol 1e-6; 24 leaf shapes alone "
-                     "and stacked x16, bf16 input, an all-zero block",
+    "int8_quantize": "q and scales bit-equal to the per-leaf plain version; "
+                     "24 leaf shapes alone and stacked x16, each alone and "
+                     "all 24 as one table, a ragged table (also at blocks "
+                     "96 and 1280), a table of 150 leaves (3 launches), "
+                     "bf16 input, an all-zero block",
     "int8_dequant_accumulate": "atol 1e-5 with an accumulator, bit-equal "
                                "as dequantize; 24 leaf shapes alone and "
                                "stacked x16",
@@ -116,7 +135,7 @@ CHECKS = {                     # what phase 3 held each kernel to (passed)
            "plain version's largest entry); prefill shape at model scale "
            "(r/k/v std 8), decode shape T 1 with the state in place, the "
            "reference's 4 cases in f32 and bf16, ragged T 1000 and 37, "
-           "strided views with one u per panel",
+           "strided views with one u per panel, 3 replays of a CUDA graph",
 }
 # K3 cases: B, S, Hq, Hkv, D, window, causal (the reference's kernel tests,
 # non-causal, then ragged S)
@@ -251,65 +270,145 @@ def check_int8(dev, gen, leaf_shapes):
     q0, s0 = R.quantize_ref(xb, BLOCK)
     if not (torch.equal(q, q0) and torch.equal(s, s0) and float(s[0]) == 1.0):
         raise Failed("int8_quantize differs on bf16 / all-zero input")
+    # K1 over a table of leaves: the 24 leaves of one client and of the
+    # stacked cohort, a ragged table (sizes off the block, an empty leaf,
+    # a leaf whose data starts off 16 bytes, bf16) and one of 150 leaves
+    sizes = torch.randint(1, 3000, (150,), generator=gen, device=dev)
+    tables = {
+        "24 leaves": [torch.randn(shp, generator=gen, device=dev) * 1e-3
+                      for shp in leaf_shapes.values()],
+        f"24 leaves x{GOAL}": [
+            torch.randn((GOAL,) + shp, generator=gen, device=dev) * 1e-3
+            for shp in leaf_shapes.values()],
+        "ragged": [torch.randn(n, generator=gen, device=dev)
+                   for n in (1, 255, 257, 0, 1000)]
+        + [torch.randn(301, generator=gen, device=dev)[1:],
+           torch.randn(7, 77, generator=gen, device=dev).to(torch.bfloat16)],
+        "150 leaves": [torch.randn(int(n), generator=gen, device=dev)
+                       for n in sizes.tolist()],
+    }
+    for what, leaves in tables.items():
+        before = K.LAUNCHES["int8_quantize"]
+        q, s, views = K.quantize_many(leaves, BLOCK)
+        launches = K.LAUNCHES["int8_quantize"] - before
+        q0, s0, views0 = R.quantize_many_ref(leaves, BLOCK)
+        if not (torch.equal(q, q0) and torch.equal(s, s0)):
+            raise Failed(f"int8_quantize over a table ({what}) differs from "
+                         f"the per-leaf plain version: "
+                         f"{int((q != q0).sum())} q elements, "
+                         f"{int((s != s0).sum())} scales")
+        for (qi, si), (qi0, si0) in zip(views, views0):
+            if qi.shape != qi0.shape or si.shape != si0.shape:
+                raise Failed(f"int8_quantize's leaf views ({what}) differ")
+        want = -(-sum(1 for x in leaves if x.numel()) // K.MAX_LEAVES)
+        if launches != want:
+            raise Failed(f"int8_quantize over {what}: {launches} launches, "
+                         f"expected {want}")
+    # blocks that are not a multiple of 128, or longer than 1024, take the
+    # kernel's other route
+    for blk in (96, 1280):
+        q, s, _ = K.quantize_many(tables["ragged"], blk)
+        q0, s0, _ = R.quantize_many_ref(tables["ragged"], blk)
+        if not (torch.equal(q, q0) and torch.equal(s, s0)):
+            raise Failed(f"int8_quantize over the ragged table differs at "
+                         f"block {blk}")
     torch.cuda.synchronize()
     print(f"[chip_smoke] int8: checked {len(leaf_shapes)} leaf shapes, alone "
-          f"and stacked x{GOAL}: q bit-equal, scales rtol 1e-6, accumulate "
-          f"max abs err {err['int8_dequant_accumulate']:.3g}")
+          f"and stacked x{GOAL}, and tables {list(tables)}: q and scales "
+          f"bit-equal, accumulate max abs err "
+          f"{err['int8_dequant_accumulate']:.3g}")
     return err
 
 
 def time_int8(dev, gen, leaf_shapes):
+    """K1 and K2 as the sync round runs them: K1 over the table of the 24
+    stacked cohort leaves in one launch, K2 as one dequantize of the whole
+    layout; each eagerly in turns with its plain version and in a CUDA
+    graph, beside the per-leaf loops (24 launches each) timed the same two
+    ways and each kernel on the largest leaf alone; and the host wall of
+    ``compress_roundtrip`` for one round. A port from before the leaf table
+    (no ``quantize_many``) is timed by its per-leaf loop, so that this
+    yardstick times both sides of that change (``--time-only --src``)."""
+    import statistics
     import torch
+    from repro_torch.federated import aggregation
     from repro_torch.kernels.int8_quant import kernel as K
     from repro_torch.kernels.int8_quant import ref as R
     cohort = [torch.randn((GOAL,) + shp, generator=gen, device=dev) * 1e-3
               for shp in leaf_shapes.values()]
-    quant = [K.quantize(x, BLOCK) for x in cohort]
-    accs = [torch.randn(x.numel(), generator=gen, device=dev) for x in cohort]
+    many = getattr(K, "quantize_many", None)
+    per_leaf = lambda: [K.quantize(x, BLOCK) for x in cohort]  # noqa: E731
+    if many is None:
+        views = per_leaf()
+        q, s = torch.cat([a for a, _ in views]), torch.cat([b for _, b in views])
+        table = per_leaf
+        plain = lambda: [R.quantize_ref(x, BLOCK) for x in cohort]  # noqa
+    else:
+        q, s, views = many(cohort, BLOCK)
+        table = lambda: many(cohort, BLOCK)                      # noqa: E731
+        plain = lambda: R.quantize_many_ref(cohort, BLOCK)       # noqa: E731
+    acc = torch.randn(q.numel(), generator=gen, device=dev)
     ns = [x.numel() for x in cohort]
     nbs = [-(-n // BLOCK) for n in ns]
-    bytes_k1 = sum(4 * n + nb * BLOCK + 4 * nb for n, nb in zip(ns, nbs))
-    # the main path runs K2 with no accumulator (the dequantize): q and the
-    # scales in, f32 out
-    bytes_k2 = sum(n + 4 * nb + 4 * n for n, nb in zip(ns, nbs))
-    bytes_k2_acc = bytes_k2 + 4 * sum(ns)
+    nb, n_lay = sum(nbs), q.numel()
+    bytes_k1 = sum(4 * n + nb_ * BLOCK + 4 * nb_ for n, nb_ in zip(ns, nbs))
+    # the main path runs K2 with no accumulator (the dequantize) over the
+    # whole layout: q and the scales in, f32 out
+    bytes_k2 = n_lay + 4 * nb + 4 * n_lay
+    bytes_k2_acc = bytes_k2 + 4 * n_lay
     reps = 10
-    k1_ms, k1_plain = in_turns(
-        lambda: [R.quantize_ref(x, BLOCK) for x in cohort],
-        lambda: [K.quantize(x, BLOCK) for x in cohort], reps)
+    k1_ms, k1_plain = in_turns(plain, table, reps)
+    k1_graph = graph_time_ms(table, reps)
+    k1_leaf = cuda_time_ms(per_leaf, reps)
+    k1_leaf_graph = graph_time_ms(per_leaf, reps)
+    deq = lambda: K.dequant_accumulate(None, q, s, 1.0, n_lay, BLOCK)  # noqa
+    deq_leaf = lambda: [K.dequant_accumulate(None, qi, si, 1.0, qi.numel(),  # noqa
+                                             BLOCK) for qi, si in views]
     k2_ms, k2_plain = in_turns(
-        lambda: [R.dequantize_ref(q, s, (n,), BLOCK)
-                 for (q, s), n in zip(quant, ns)],
-        lambda: [K.dequant_accumulate(None, q, s, 1.0, n, BLOCK)
-                 for (q, s), n in zip(quant, ns)], reps)
+        lambda: R.dequantize_ref(q, s, (n_lay,), BLOCK), deq, reps)
+    k2_graph = graph_time_ms(deq, reps)
+    k2_leaf = cuda_time_ms(deq_leaf, reps)
     k2a_ms, k2a_plain = in_turns(
-        lambda: [R.dequant_accumulate_ref(a, q, s, 0.37, BLOCK)
-                 for (q, s), a in zip(quant, accs)],
-        lambda: [K.dequant_accumulate(a, q, s, 0.37, n, BLOCK)
-                 for (q, s), a, n in zip(quant, accs, ns)], reps)
+        lambda: R.dequant_accumulate_ref(acc, q, s, 0.37, BLOCK),
+        lambda: K.dequant_accumulate(acc, q, s, 0.37, n_lay, BLOCK), reps)
     big = max(range(len(cohort)), key=lambda i: ns[i])
-    xbig, (qbig, sbig), nbig = cohort[big], quant[big], ns[big]
+    xbig, (qbig, sbig), nbig, nbigb = cohort[big], views[big], ns[big], nbs[big]
     big_k1 = cuda_time_ms(lambda: K.quantize(xbig, BLOCK), 20)
     big_k2 = cuda_time_ms(
         lambda: K.dequant_accumulate(None, qbig, sbig, 1.0, nbig, BLOCK), 20)
-    nbigb = -(-nbig // BLOCK)
+    delta = dict(zip(leaf_shapes, cohort))
+    walls = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aggregation.compress_roundtrip(delta, BLOCK)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
     return {
         "int8_quantize": dict(
             ms=k1_ms, plain_ms=k1_plain,
             bound_ms=bytes_k1 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None,
+            library_ms=None, graph_ms=k1_graph, leaves=len(cohort),
+            leaf_table=many is not None,
+            per_leaf_loop={"ms": k1_leaf, "graph_ms": k1_leaf_graph,
+                           "launches": len(cohort)},
             largest_leaf={"shape": list(xbig.shape), "ms": big_k1,
                           "bound_ms": (4 * nbig + nbigb * BLOCK + 4 * nbigb)
-                          / HBM_BYTES_PER_S * 1e3}),
+                          / HBM_BYTES_PER_S * 1e3},
+            compress_roundtrip_wall_ms={"median": statistics.median(walls[1:]),
+                                        "min": min(walls[1:]),
+                                        "runs": len(walls) - 1}),
         "int8_dequant_accumulate": dict(
             ms=k2_ms, plain_ms=k2_plain,
             bound_ms=bytes_k2 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None,
-            with_accumulator={"ms": k2a_ms, "plain_ms": k2a_plain,
-                              "bound_ms": bytes_k2_acc / HBM_BYTES_PER_S * 1e3},
+            library_ms=None, graph_ms=k2_graph, layout_elements=n_lay,
+            per_leaf_loop={"ms": k2_leaf, "launches": len(cohort)},
             largest_leaf={"shape": list(xbig.shape), "ms": big_k2,
                           "bound_ms": (5 * nbig + 4 * nbigb)
-                          / HBM_BYTES_PER_S * 1e3}),
+                          / HBM_BYTES_PER_S * 1e3},
+            with_accumulator={"ms": k2a_ms, "plain_ms": k2a_plain,
+                              "bound_ms": bytes_k2_acc / HBM_BYTES_PER_S
+                              * 1e3}),
     }
 
 
@@ -609,16 +708,47 @@ def check_wkv(dev, gen):
     u = torch.randn(2, 8, 64, generator=gen, device=dev) * 0.1
     s0 = torch.randn(2, 8, 64, 64, generator=gen, device=dev) * 0.1
     check((r, k, v, torch.sigmoid(wl), u, s0), 3e-5, "strided views")
+    # replayed from a CUDA graph: the state is updated in place, so each
+    # replay starts from a fresh copy of s0
+    r, k, v, w, u = _wkv_model_scale(2, 100, dev, gen)
+    s0 = torch.randn(2, WKV_HEADS, WKV_D, WKV_D, generator=gen, device=dev)
+    o0, sT0 = WR.wkv_batched_ref(r, k, v, w, u, s0)
+    state = s0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        WK.wkv(r, k, v, w, u, state)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    state.copy_(s0)
+    with torch.cuda.graph(g):
+        o, _ = WK.wkv(r, k, v, w, u, state)
+    sc_o = max(1.0, float(o0.abs().max()))
+    sc_s = max(1.0, float(sT0.abs().max()))
+    for i in range(3):
+        state.copy_(s0)
+        o.zero_()
+        g.replay()
+        e_o = float((o - o0).abs().max())
+        e_s = float((state - sT0).abs().max())
+        if not (e_o <= 3e-5 * sc_o and e_s <= 3e-5 * sc_s):
+            raise Failed(f"wkv differs in a CUDA graph's replay {i}: max abs "
+                         f"err o {e_o} (scale {sc_o}), state {e_s} (scale "
+                         f"{sc_s})")
+        err["wkv"] = max(err["wkv"], e_o, e_s)
     torch.cuda.synchronize()
     print(f"[chip_smoke] wkv: prefill and decode shapes at model scale, "
           f"{len(WKV_CASES)} reference cases x (f32, bf16), "
-          f"{len(WKV_RAGGED)} ragged T, strided views; max abs err {err}")
+          f"{len(WKV_RAGGED)} ragged T, strided views, 3 graph replays; max "
+          f"abs err {err}")
     return err
 
 
 def time_wkv(dev, gen):
     """K5 at the prefill shape (8, 1024, 64, 64) and the decode shape (T 1):
     eager in turns with its plain version, and its device time in a CUDA
+    graph; at the decode shape also over RWKV_LAYERS distinct states, one
+    per layer as a decode step holds them (268 MB, cold in L2), in a CUDA
     graph. No single PyTorch call computes WKV."""
     import torch
     from repro_torch.kernels.wkv import kernel as WK
@@ -639,9 +769,19 @@ def time_wkv(dev, gen):
         b, by = bound(4 * D * D * B * T * H, nbytes)
         out[name] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                          graph_ms=graph, shape=[B, T, H, D])
+        if T == 1:
+            states = [torch.zeros(B, H, D, D, device=dev)
+                      for _ in range(RWKV_LAYERS)]
+            out[name]["cold_graph_ms"] = per_call_ms(
+                lambda: [WK.wkv(r, k, v, w, u, st) for st in states],
+                RWKV_LAYERS, 3, graph=True)
+            out[name]["states"] = RWKV_LAYERS
+        cold = out[name].get("cold_graph_ms")
         print(f"[chip_smoke] wkv at the {name} shape {[B, T, H, D]}: "
               f"{ms:.4f} ms eager, {graph:.4f} ms in a CUDA graph (plain "
-              f"{plain:.4f}, bound {b:.4f} by {by})")
+              f"{plain:.4f}, bound {b:.4f} by {by})"
+              + ("" if cold is None else f"; over {RWKV_LAYERS} states "
+                 f"cold in L2, graph: {cold:.4f} ms"))
     pre = out["prefill"]
     return {"wkv": dict(
         ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
@@ -671,7 +811,7 @@ def read_launches() -> dict:
 
 
 # --------------------------------------------------------------- main paths
-def train_path(dev, cfg, leaf_shapes):
+def train_path(dev, cfg):
     from repro_torch.configs import FederatedConfig
     from repro_torch.launch import train
     fed = FederatedConfig(
@@ -687,10 +827,12 @@ def train_path(dev, cfg, leaf_shapes):
     for name in ("int8_quantize", "int8_dequant_accumulate"):
         if launches[name] == 0:
             raise Failed(f"{name} never ran on the train path")
-    # one launch per leaf for each cohort compress
-    if launches["int8_quantize"] != len(leaf_shapes) * ROUNDS:
-        raise Failed(f"expected {len(leaf_shapes) * ROUNDS} int8_quantize "
-                     f"launches, got {launches['int8_quantize']}")
+    # one K1 launch over the cohort's table of leaves and one K2 launch
+    # (the dequantize of the whole layout) for each round's compress
+    for name in ("int8_quantize", "int8_dequant_accumulate"):
+        if launches[name] != ROUNDS:
+            raise Failed(f"expected {ROUNDS} {name} launches (one a round), "
+                         f"got {launches[name]}")
     ppl = [r.perplexity for r in records]
     if len(records) != ROUNDS or not all(math.isfinite(p) for p in ppl):
         raise Failed(f"train path perplexities {ppl}")
@@ -739,7 +881,7 @@ def rwkv_serve_path(dev):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     cfg = get_config(RWKV_ARCH)
-    if cfg.param_count() != 7_576_621_056 or cfg.num_layers != 32:
+    if cfg.param_count() != 7_576_621_056 or cfg.num_layers != RWKV_LAYERS:
         raise Failed("rwkv serve path is not at rwkv6-7b's full width")
     reset_launches()
     t0 = time.perf_counter()
@@ -914,12 +1056,19 @@ def small_serve(dev, arch):
 
 
 def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        return fail(f"no port package under {SRC}: run from a checkout")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time-only", action="store_true",
+                    help="run phases 1, 2 and 4 only")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src directory whose repro_torch is run")
+    args = ap.parse_args()
+    src = args.src.resolve()
+    if not (src / "repro_torch").is_dir():
+        return fail(f"no port package under {src}: run from a checkout")
     import torch
     if not torch.cuda.is_available():
         return fail("no CUDA device")
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -945,27 +1094,37 @@ def main() -> int:
     print(f"[chip_smoke] card: {card}")
 
     try:
-        phase("3. kernels against their plain versions")
+        phase("3. kernels against their plain versions"
+              + (" (skipped: --time-only)" if args.time_only else ""))
         cfg = get_config("paper-charlm")
         shapes, _ = get_model(cfg).init(device="meta")
         leaf_shapes = {k: tuple(v.shape) for k, v in shapes.items()}
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        err = check_int8(dev, gen, leaf_shapes)
-        err.update(check_attention(dev, gen))
-        err.update(check_wkv(dev, gen))
+        if not args.time_only:
+            err = check_int8(dev, gen, leaf_shapes)
+            err.update(check_attention(dev, gen))
+            err.update(check_wkv(dev, gen))
 
         phase("4. timing at the main paths' shapes")
         timing = time_int8(dev, gen, leaf_shapes)
         timing.update(time_attention(dev, gen))
         timing.update(time_wkv(dev, gen))
+        if args.time_only:
+            print(json.dumps({"src": str(src), "card": card,
+                              "timing": timing}))
+            return 0
         for name in ("int8_quantize", "int8_dequant_accumulate"):
             t = timing[name]
-            print(f"[chip_smoke] {name}: {t['ms']:.4f} ms per round's "
-                  f"{len(leaf_shapes)} launches (plain {t['plain_ms']:.4f} "
-                  f"ms, bound {t['bound_ms']:.4f} ms)")
+            print(f"[chip_smoke] {name}: {t['ms']:.4f} ms eager, "
+                  f"{t['graph_ms']:.4f} ms in a CUDA graph, for a round's "
+                  f"{len(leaf_shapes)} leaves in one launch (per-leaf loop "
+                  f"{t['per_leaf_loop']['ms']:.4f} ms; plain "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms)")
+        print(f"[chip_smoke] compress_roundtrip wall for one round: "
+              f"{timing['int8_quantize']['compress_roundtrip_wall_ms']}")
 
         phase("5a. main path: repro_torch.launch.train at full width")
-        records, train_launches, fed = train_path(dev, cfg, leaf_shapes)
+        records, train_launches, fed = train_path(dev, cfg)
         phase("5b. main path: repro_torch.launch.serve at full width")
         res, serve_launches = serve_path(dev)
         phase("5c. main path: repro_torch.launch.serve, rwkv6-7b at full "
@@ -987,7 +1146,7 @@ def main() -> int:
                                                   "decode_attention")},
                 "wkv": rwkv_launches["wkv"]}
     kernels = []
-    for name, src in TPU_KERNELS.items():
+    for name, tpu in TPU_KERNELS.items():
         t = timing[name]
         extra = {k: v for k, v in t.items()
                  if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -997,7 +1156,7 @@ def main() -> int:
                 extra[f"max_abs_err{suffix}"] = err[f"{name}{suffix}"]
         kernels.append({
             "name": name, "route": "cuda", "source": CU_SOURCES[name],
-            "replaces": src, "launches": launches[name],
+            "replaces": tpu, "launches": launches[name],
             "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "check": CHECKS[name], **extra})

@@ -20,11 +20,22 @@ from repro_torch.kernels.int8_quant import ops as q8
 
 def compress_roundtrip(delta: Dict[str, torch.Tensor], block: int = 256
                        ) -> Dict[str, torch.Tensor]:
-    """Simulate the int8 uplink: quantize + dequantize each leaf (one K1 and
-    one K2 launch per leaf on the card). Each leaf is quantized as one flat
-    tensor, so for stacked (N, ...) cohort deltas a block may span the rows
-    of several clients, as it does in the reference."""
-    return {k: q8.quant_dequant(v, block=block) for k, v in delta.items()}
+    """Simulate the int8 uplink: quantize + dequantize each leaf. On the
+    card the whole delta is one K1 launch over its table of leaves and one
+    K2 launch (the dequantize) over the concatenated layout. Each leaf is
+    quantized in its own blocks as one flat tensor, so for stacked (N, ...)
+    cohort deltas a block may span the rows of several clients, as it does
+    in the reference, but never two leaves."""
+    if not delta:
+        return {}
+    leaves = list(delta.values())
+    q, s, views = q8.quantize_many(leaves, block=block)
+    flat = q8.dequantize(q, s, (q.numel(),), block=block)
+    out, a = {}, 0
+    for k, x, (qk, _) in zip(delta, leaves, views):
+        out[k] = flat[a:a + x.numel()].reshape(x.shape).to(x.dtype)
+        a += qk.numel()
+    return out
 
 
 def weighted_mean_deltas(deltas: Dict[str, torch.Tensor],

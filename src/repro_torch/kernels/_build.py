@@ -28,6 +28,11 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# What the attention and WKV kernels take: head dims and input types (the
+# dtype code each source's entry point reads).
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -109,3 +114,24 @@ def check_cuda(name: str, t: torch.Tensor) -> None:
 def raise_if_failed(kernel: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its address and strides are multiples of 16 bytes, as
+    the kernels' 16-byte cp.async copies need; else a contiguous copy (whose
+    rows of D >= 16 elements are)."""
+    es = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0
+                                      for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def run_on(dev: torch.device, launch):
+    """launch(stream) on dev's current PyTorch stream, with dev made the
+    current CUDA device only when it is not already."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return launch(stream)
+    with torch.cuda.device(dev):
+        return launch(stream)

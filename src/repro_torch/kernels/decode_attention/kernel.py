@@ -22,9 +22,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import check_cuda, raise_if_failed
-from repro_torch.kernels.swa_attention.kernel import (DTYPES, HEAD_DIMS,
-                                                      aligned16, run_on)
+from repro_torch.kernels._build import (DTYPES, HEAD_DIMS, aligned16,
+                                        check_cuda, raise_if_failed, run_on)
 
 LAUNCHES = {"decode_attention": 0}
 MAX_GROUP = 16            # query heads per kv head (kMaxG in the source)

@@ -3,7 +3,7 @@ tensor launches the hand-written kernel (or raises), a CPU tensor takes the
 plain PyTorch version in ``ref``. There is no other fallback."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -21,6 +21,19 @@ def quantize(x: torch.Tensor, block: int = 256
     if _on_cuda(x):
         return K.quantize(x, block)
     return R.quantize_ref(x, block)
+
+
+def quantize_many(leaves: Sequence[torch.Tensor], block: int = 256
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Every leaf quantized in its own blocks, laid out one after another:
+    (q (total_nb, block), scales (total_nb,), [(q_i, s_i)] per leaf). On
+    the card, one K1 launch for up to ``K.MAX_LEAVES`` leaves."""
+    if not leaves:
+        raise ValueError("quantize_many needs at least one leaf")
+    if _on_cuda(leaves[0]):
+        return K.quantize_many(leaves, block)
+    return R.quantize_many_ref(leaves, block)
 
 
 def dequantize(q: torch.Tensor, s: torch.Tensor, shape,

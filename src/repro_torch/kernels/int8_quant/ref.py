@@ -8,7 +8,7 @@ path of ``ops`` runs them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -31,6 +31,24 @@ def quantize_ref(x: torch.Tensor, block: int = 256
     # torch.round rounds half to even, as jnp.round does
     q = torch.clamp(torch.round(xb / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def quantize_many_ref(leaves: Sequence[torch.Tensor], block: int = 256
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """``quantize_ref`` of each leaf, concatenated: (q int8 (total_nb,
+    block), scales f32 (total_nb,), [(q_i, s_i)] views of them per
+    leaf)."""
+    if not leaves:
+        raise ValueError("quantize_many needs at least one leaf")
+    parts = [quantize_ref(x, block) for x in leaves]
+    q = torch.cat([p[0] for p in parts])
+    s = torch.cat([p[1] for p in parts])
+    views, a = [], 0
+    for pq, _ in parts:
+        views.append((q[a:a + pq.shape[0]], s[a:a + pq.shape[0]]))
+        a += pq.shape[0]
+    return q, s, views
 
 
 def dequantize_ref(q: torch.Tensor, scale: torch.Tensor, shape,

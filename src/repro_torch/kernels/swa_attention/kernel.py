@@ -17,11 +17,10 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import check_cuda, raise_if_failed
+from repro_torch.kernels._build import (DTYPES, HEAD_DIMS, aligned16,
+                                        check_cuda, raise_if_failed, run_on)
 
 LAUNCHES = {"swa_attention": 0}
-HEAD_DIMS = (16, 32, 64, 128)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -29,27 +28,6 @@ _i = ctypes.c_int
 
 def reset_launches() -> None:
     LAUNCHES["swa_attention"] = 0
-
-
-def aligned16(t: torch.Tensor) -> torch.Tensor:
-    """t itself when its address and strides are multiples of 16 bytes, as
-    the kernels' 16-byte cp.async copies need; else a contiguous copy (whose
-    rows of D >= 16 elements are)."""
-    es = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0
-                                      for s in t.stride()[:-1]):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
-
-
-def run_on(dev: torch.device, launch):
-    """launch(stream) on dev's current PyTorch stream, with dev made the
-    current CUDA device only when it is not already."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return launch(stream)
-    with torch.cuda.device(dev):
-        return launch(stream)
 
 
 def _lib() -> ctypes.CDLL:

@@ -5,7 +5,8 @@ K5 ``wkv`` replaces the TPU kernel ``wkv_pallas`` (the reference's
 kernel cannot take, allocates the output, launches on PyTorch's current
 stream without synchronising, raises if the launch was refused, and adds
 one to ``LAUNCHES``. The final state is written IN PLACE over the state it
-is given.
+is given. Inputs whose pointer or outer strides are not multiples of 16
+bytes (the kernel's cp.async copies) are copied first.
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import check_cuda, raise_if_failed
-from repro_torch.kernels.swa_attention.kernel import DTYPES, HEAD_DIMS
+from repro_torch.kernels._build import (DTYPES, HEAD_DIMS, aligned16,
+                                        check_cuda, raise_if_failed)
 
 LAUNCHES = {"wkv": 0}
 
@@ -74,6 +75,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                          f"{D}, {D}) tensor on {r.device}, got "
                          f"{tuple(state.shape)} {state.dtype} on "
                          f"{state.device}")
+    r, k, v, w = (aligned16(t) for t in (r, k, v, w))
     uf = u.to(torch.float32).contiguous()
     u_strides = (0, uf.stride(0)) if uf.dim() == 2 else uf.stride()[:2]
     o = torch.empty((B, T, H, D), dtype=r.dtype, device=r.device)
