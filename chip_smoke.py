@@ -46,9 +46,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      c. ``repro_torch.launch.serve``: rwkv6-7b at full width (32 layers,
         7,576,621,056 params, f32), the same 8 requests and 64 tokens;
         exactly 32 + 32 x 64 K5 launches and no K3/K4;
+     d. ``repro_torch.api.Experiment(spec).run()`` with the real learner on
+        paper-charlm at full width, in sync, async and carbon-aware mode
+        (3 server updates each, 5a's settings, the default Environment):
+        the port's event engine and carbon accounting drive the learner;
+        exactly the K1 and K2 launches the engine's record implies (one of
+        each a sync round that is not starved, one of each a client of an
+        async or carbon-aware update);
   6. check the outputs: finite perplexities, and on a small config one
      round on the card agrees with the same round on the CPU (plain
-     versions of the kernels); generated tokens in the vocabulary and
+     versions of the kernels); the three modes of 5d at a small size give
+     the CPU's summary, participation and mean staleness (perplexity
+     within rel 1e-3), and 5d's summaries are finite with 3 rounds,
+     sessions and carbon; generated tokens in the vocabulary and
      finite logits; at full width prefill(t[:-1]) + decode(t[-1]) equals
      the full forward's last logits (atol 2e-3 + rtol 2e-3, with wq/wk/wv
      at 1/sqrt(d_model): see ``serve_consistency``), and for rwkv6-7b (at
@@ -97,6 +107,7 @@ LAYERS = 30                    # smollm-135m: one K4 call a layer a step
 RWKV_ARCH, RWKV_CHECK_LAYERS = "rwkv6-7b", 4
 RWKV_LAYERS = 32               # rwkv6-7b: one K5 call a layer a step
 SEED = 0
+MODES = ("sync", "async", "carbon-aware")   # phase 5d: the engine's modes
 TPU_KERNELS = {                # kernel -> the TPU function it replaces
     "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:32",
     "int8_dequant_accumulate": "src/repro/kernels/int8_quant/kernel.py:68",
@@ -897,7 +908,122 @@ def rwkv_serve_path(dev):
     return res, launches, run_s
 
 
+def experiment_spec(mode, model, seq_len, concurrency, goal, batch):
+    """5a's federated settings in ``mode``; a target perplexity of 1.0 is
+    never reached, so every run takes its ROUNDS server updates."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.configs import FederatedConfig, RunConfig
+    fed = FederatedConfig(
+        mode=mode, concurrency=concurrency, aggregation_goal=goal,
+        client_lr=0.3, server_lr=0.02, client_batch_size=batch,
+        compression="int8", seed=SEED)
+    return ExperimentSpec(model=model, federated=fed,
+                          run=RunConfig(target_perplexity=1.0,
+                                        max_rounds=ROUNDS),
+                          learner="real", seq_len=seq_len)
+
+
+def codec_launches_from_log(result, mode) -> int:
+    """The K1 (and K2) launches the engine's record implies. A sync round
+    that is not starved makes one ``client_deltas`` call, whose codec is one
+    K1 and one K2 launch over the stacked cohort. An async or carbon-aware
+    update calls ``client_delta`` once for each contributor, one K1 and one
+    K2 launch each; the contributors are the log's completed sessions, as
+    long as every window closed on an update (not on ``max_hours``)."""
+    log = result.log
+    if mode == "sync":
+        return log.rounds - log.starved_rounds
+    if result.duration_h >= result.spec.run.max_hours:
+        raise Failed(f"{mode} run reached max_hours; its last window "
+                     f"closed without an update")
+    return log.completed_sessions()
+
+
+def experiment_path(dev, mode):
+    """Phase 5d in one mode: the port's Experiment at full width."""
+    from repro_torch.api import Experiment, ModelRef
+    spec = experiment_spec(mode, ModelRef("paper-charlm"), SEQ_LEN,
+                           CONCURRENCY, GOAL, BATCH)
+    exp = Experiment(spec, device=dev)
+    if exp.model_config.param_count() != 15_560_704 or \
+            spec.max_client_steps != 8:
+        raise Failed("experiment path is not at the paper's full width")
+    learner = exp.build_learner()
+    if learner.device != dev:
+        raise Failed(f"the learner runs on {learner.device}, not {dev}")
+    marks = []
+    reset_launches()
+    result = exp.run(on_start=lambda _: marks.append(time.perf_counter()),
+                     on_round=lambda _: marks.append(time.perf_counter()))
+    launches = read_launches()
+    want = codec_launches_from_log(result, mode)
+    for name in ("int8_quantize", "int8_dequant_accumulate"):
+        if launches[name] != want:
+            raise Failed(f"{mode}: expected {want} {name} launches from the "
+                         f"engine's record, got {launches[name]}")
+    for name in ("swa_attention", "decode_attention", "wkv"):
+        if launches[name]:
+            raise Failed(f"{mode}: {name} ran on the experiment path")
+    summary = result.summary()
+    bad = [k for k, v in summary.items() if not math.isfinite(v)]
+    if bad or summary["rounds"] != ROUNDS or summary["sessions"] <= 0 or \
+            summary["carbon_total_kg"] <= 0:
+        raise Failed(f"{mode} summary {summary} (not finite: {bad})")
+    walls = [b - a for a, b in zip(marks, marks[1:])]
+    out = {"mode": mode, "summary": summary, "wall_s": result.wall_s,
+           "round_walls_s": walls, "launches": launches,
+           "launches_from_log": want,
+           "participation": result.log.participation(),
+           "mean_staleness": result.log.mean_staleness(),
+           "launches_per_client": None if mode == "sync" else
+           launches["int8_quantize"] / want}
+    print(f"[chip_smoke] experiment {mode}: {ROUNDS} rounds in "
+          f"{result.wall_s:.2f} s, round walls "
+          f"{[round(w, 3) for w in walls]}, K1/K2 launches "
+          f"{launches['int8_quantize']}/"
+          f"{launches['int8_dequant_accumulate']} (engine's record: {want})")
+    return out
+
+
 # ------------------------------------------------------------------ outputs
+def small_experiments(dev):
+    """The three modes of 5d at a small size (train.reduced_config,
+    seq_len 16), on the card and on the CPU from the same weights: equal
+    summaries but for the perplexity (rel 1e-3, as in small_round), equal
+    participation and mean staleness."""
+    from repro_torch.api import Experiment, ModelRef
+    from repro_torch.federated import RealLearner
+    from repro_torch.launch import train
+    from repro_torch.weights import params_to_numpy
+    small = train.reduced_config("paper-charlm")
+    for mode in MODES:
+        spec = experiment_spec(mode, ModelRef.from_config(small), 16,
+                               concurrency=8, goal=6, batch=8)
+        cpu_exp = Experiment(spec, device="cpu")
+        cpu_learner = cpu_exp.build_learner()
+        card_learner = RealLearner(
+            small, spec.federated, spec.run, cpu_learner.dataset,
+            max_client_steps=spec.max_client_steps, device=dev,
+            init_params=params_to_numpy(cpu_learner.params))
+        card = Experiment(spec, learner=card_learner).run()
+        cpu = cpu_exp.run()
+        got, want = card.summary(), cpu.summary()
+        for k in want:
+            same = math.isclose(got[k], want[k], rel_tol=1e-3) \
+                if k == "perplexity" else got[k] == want[k]
+            if not same:
+                raise Failed(f"small {mode} experiment: {k} on the card "
+                             f"{got[k]} vs CPU {want[k]}")
+        for what in ("participation", "mean_staleness"):
+            a, b = getattr(card.log, what)(), getattr(cpu.log, what)()
+            if a != b:
+                raise Failed(f"small {mode} experiment: {what} on the card "
+                             f"{a} vs CPU {b}")
+        print(f"[chip_smoke] small {mode} experiment: card equals the CPU; "
+              f"perplexity card {got['perplexity']:.6f}, CPU "
+              f"{want['perplexity']:.6f}")
+
+
 def small_round(dev, fed):
     from repro_torch.configs import RunConfig
     from repro_torch.data import FederatedDataset
@@ -1130,9 +1256,12 @@ def main() -> int:
         phase("5c. main path: repro_torch.launch.serve, rwkv6-7b at full "
               "width")
         rwkv_res, rwkv_launches, rwkv_run_s = rwkv_serve_path(dev)
+        phase("5d. main path: repro_torch.api.Experiment at full width")
+        experiments = [experiment_path(dev, mode) for mode in MODES]
 
         phase("6. outputs")
         small_round(dev, fed)
+        small_experiments(dev)
         consistency = serve_consistency(dev)
         rwkv_consistent = rwkv_consistency(dev)
         small_serve(dev, SERVE_ARCH)
@@ -1154,6 +1283,9 @@ def main() -> int:
         for suffix in ("_bf16", "_over_scale", "_bf16_over_scale"):
             if f"{name}{suffix}" in err:
                 extra[f"max_abs_err{suffix}"] = err[f"{name}{suffix}"]
+        if name.startswith("int8_"):
+            extra["launches_experiment"] = {
+                e["mode"]: e["launches"][name] for e in experiments}
         kernels.append({
             "name": name, "route": "cuda", "source": CU_SOURCES[name],
             "replaces": tpu, "launches": launches[name],
@@ -1173,6 +1305,8 @@ def main() -> int:
         "prefill_s": rwkv_res.prefill_s, "decode_s": rwkv_res.decode_s,
         "tokens_per_s": rwkv_res.tokens_per_s, "run_s": rwkv_run_s,
         "prefill_plus_decode_vs_full_forward": rwkv_consistent}}))
+    for e in experiments:
+        print(json.dumps({"experiment": e}))
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

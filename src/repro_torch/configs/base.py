@@ -75,6 +75,14 @@ class ModelConfig:
         from repro_torch.models import registry as _m  # lazy, avoids cycle
         return _m.param_count(self)
 
+    def active_param_count(self) -> int:
+        from repro_torch.models import registry as _m
+        return _m.param_count(self, active_only=True)
+
+    def train_flops_per_token(self) -> float:
+        """~6*N(active) per token (fwd+bwd)."""
+        return 6.0 * self.active_param_count()
+
 
 @dataclass(frozen=True)
 class FederatedConfig:
@@ -182,6 +190,10 @@ def normalize_model_kwargs(d: dict) -> dict:
     if "cnn_filters" in d:
         d["cnn_filters"] = tuple(tuple(f) for f in d["cnn_filters"])
     return d
+
+
+def model_config_to_dict(cfg: ModelConfig) -> dict:
+    return dataclasses.asdict(cfg)
 
 
 def model_config_from_dict(d: dict) -> ModelConfig:

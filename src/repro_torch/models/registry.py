@@ -19,8 +19,16 @@ def get_model(cfg: ModelConfig, *, decode_window: int = 0):
         f"model family {cfg.family!r} ({cfg.name}) is not ported yet")
 
 
-def param_count(cfg: ModelConfig) -> int:
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact parameter count from the model's shapes, with no allocation
-    (the init runs on the ``meta`` device)."""
-    params, _ = get_model(cfg).init(device="meta")
-    return sum(p.numel() for p in params.values())
+    (the init runs on the ``meta`` device). ``active_only`` counts the
+    ``experts`` leaves at ``top_k / num_experts`` of their size, as the
+    reference does."""
+    params, axes = get_model(cfg).init(device="meta")
+    total = 0.0
+    for k, p in params.items():
+        n = p.numel()
+        if active_only and cfg.moe is not None and "experts" in axes[k]:
+            n *= cfg.moe.top_k / cfg.moe.num_experts
+        total += n
+    return int(total)
