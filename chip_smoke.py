@@ -22,6 +22,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      reference's 4 kernel cases in f32 and bf16, ragged T 1000 and 37,
      strided views of one fused tensor with one u per panel, 3 replays of a
      CUDA graph;
+  3b. hold the learner's cohort step (one batched local step over the
+     stacked clients, replayed from a CUDA graph) at full width against the
+     plain per-client step: a ragged 16-client cohort with 1 to 8 local
+     steps (2 clients each), batch 16, seq_len 64, every client from the
+     same base params: each local step from the base params against
+     ``make_client_update``'s step on the same batch (loss within rel 1e-5,
+     delta within atol 1e-4: see ``check_cohort``), the deltas bit-equal
+     to the same vmapped step run eagerly, exactly 8 replays and 1
+     capture, and the whole deltas printed beside the per-client step's
+     own change under one f32 rounding of its inputs; the same for one
+     ``client_delta`` (N = 1, 8 steps), whose whole delta is held within
+     atol 1e-5 of the per-client step's;
   4. time each kernel, its plain version and (K3/K4) the one PyTorch call
      that computes the same function, with CUDA events, in turns (plain,
      kernel, kernel, plain), at the shapes of the main paths: K3 in f32 and
@@ -39,7 +51,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      a. ``repro_torch.launch.train``: 3 sync FedAvg rounds of paper-charlm
         at full width (15,560,704 params), concurrency 20, goal 16, seq_len
         64, client batch 16, 8 client steps, int8 uplink; exactly one K1
-        and one K2 launch a round;
+        and one K2 launch a round, and as many cohort-step graph replays
+        as the round's longest client has local steps (from the clients'
+        batch counts), one capture in all;
      b. ``repro_torch.launch.serve``: smollm-135m at full width (30 layers,
         134,515,008 params, f32), 8 requests of 1024 prompt tokens, then 64
         greedy tokens each; exactly 30 K3 and 30 x 64 K4 launches;
@@ -52,7 +66,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
         the port's event engine and carbon accounting drive the learner;
         exactly the K1 and K2 launches the engine's record implies (one of
         each a sync round that is not starved, one of each a client of an
-        async or carbon-aware update);
+        async or carbon-aware update), and for each learner call the
+        engine made as many graph replays as its longest client has local
+        steps (a sync cohort) or as its one client has (async), with one
+        capture for each cohort size;
   6. check the outputs: finite perplexities, and on a small config one
      round on the card agrees with the same round on the CPU (plain
      versions of the kernels); the three modes of 5d at a small size give
@@ -821,9 +838,191 @@ def read_launches() -> dict:
     return out
 
 
+# ------------------------------------------------------------- cohort step
+def local_steps(ds, fed, max_steps, cid) -> int:
+    """The local steps a client trains: its batch count, capped."""
+    return min(len(ds.client_batches(cid, fed.client_batch_size,
+                                     fed.local_epochs)), max_steps)
+
+
+def ragged_cohort(ds, fed, max_steps):
+    """Client ids, two for each local step count from max_steps down to 1:
+    the first such ids in order."""
+    by_steps = {s: [] for s in range(1, max_steps + 1)}
+    cid = 0
+    while any(len(v) < 2 for v in by_steps.values()):
+        n = local_steps(ds, fed, max_steps, cid)
+        if len(by_steps[n]) < 2:
+            by_steps[n].append(cid)
+        cid += 1
+    return [c for s in range(max_steps, 0, -1) for c in by_steps[s]]
+
+
+def check_cohort(dev):
+    """Phase 3b: the learner's graph-replayed cohort step at full width
+    against make_client_update (the plain per-client step) and against the
+    same vmapped step run eagerly; a ragged 16-client cohort (2 clients
+    for each of 1 to 8 local steps), then one client_delta (8 steps). No
+    codec, so the deltas are the steps' own.
+
+    Held: the graph replay bit-equal to the eager vmapped step; at N = 1
+    the whole 8-step delta within atol 1e-5 (the client-step tolerance) of
+    the per-client one; at N = 16 every local step of every client, taken
+    from the base params, with its loss within rel 1e-5 and its delta
+    within atol 1e-4 of the per-client step on the same batch (the count
+    within 1e-5 is printed). A batched product sums in another order than
+    a per-client one, and where a ReLU input lies within a rounding of 0
+    the two steps take different sides of the kink: that unit's gradient
+    at that token then differs whole, which moves the step's delta by up to
+    about 2e-5 at this width; the per-client step on the CPU differs from
+    the one on the card in the same way (``scripts/cohort_kinks.py``
+    shows both). Printed, not held: the whole multi-step deltas of the
+    16-client cohort against the per-client ones, beside the per-client
+    step's own change under a relative noise of 1e-7 in the base params
+    (one f32 rounding), which local SGD at the paper's client_lr 0.3
+    amplifies about 3e4-fold over 8 steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import FederatedConfig, RunConfig, get_config
+    from repro_torch.data import FederatedDataset
+    from repro_torch.federated import RealLearner, client
+    from repro_torch.federated.client import stack_batches, to_device
+    from repro_torch.launch import train
+    cfg = get_config("paper-charlm")
+    fed = FederatedConfig(
+        mode="sync", concurrency=CONCURRENCY, aggregation_goal=GOAL,
+        client_lr=0.3, server_lr=0.02, client_batch_size=BATCH,
+        compression="none", seed=SEED)
+    ds = FederatedDataset(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
+                          char_vocab=cfg.char_vocab,
+                          max_word_len=cfg.max_word_len)
+    steps = train.MAX_CLIENT_STEPS
+    learner = RealLearner(cfg, fed, RunConfig(), ds, max_client_steps=steps,
+                          seed=SEED, device=dev)
+    if cfg.param_count() != 15_560_704 or steps != 8:
+        raise Failed("the cohort check is not at the paper's full width")
+    ids = ragged_cohort(ds, fed, steps)
+    base = learner.params
+    looped = client.make_client_update(learner.model.loss, fed.client_lr)
+    eager = client.make_cohort_update(learner.model.loss, fed.client_lr,
+                                      graph=False)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    noisy = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=g,
+                                            device=dev))
+             for k, v in base.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t0
+
+    def max_err(a, b, err):
+        for k in err:
+            err[k] = max(err[k], float((a[k] - b[k]).abs().max()))
+
+    out = {}
+    for what, cohort in (("cohort of 16", ids), ("client_delta", ids[:1])):
+        client.reset_graph_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if what == "client_delta":
+            (d, _), wall = timed(lambda: learner.client_delta(cohort[0]))
+            got = [d]
+        else:
+            (got, _), wall = timed(lambda: learner.client_deltas(cohort))
+        peak = torch.cuda.max_memory_allocated(dev)
+        graphs = dict(client.GRAPH_COUNTS)
+        n_steps = [local_steps(ds, fed, steps, c) for c in cohort]
+        want = {"captures": 1, "replays": max(n_steps)}
+        if graphs != want:
+            raise Failed(f"cohort step, {what}: graph counts {graphs}, "
+                         f"expected {want}")
+        stacked = [stack_batches(ds.client_batches(c, BATCH,
+                                                   fed.local_epochs), steps)
+                   for c in cohort]
+        inputs = to_device({k: np.stack([s[k] for s, _ in stacked])
+                            for k in stacked[0][0]}, dev)
+        masks = np.stack([m for _, m in stacked])
+        ref, eager_wall = timed(lambda: eager(base, inputs, masks)[0])
+        not_equal = [k for k in ref if not torch.equal(
+            torch.stack([d[k] for d in got]), ref[k])]
+        # the whole deltas against the per-client step, and that step's
+        # own change under one f32 rounding of the base params
+        err, noise, loop_wall = {k: 0.0 for k in base}, \
+            {k: 0.0 for k in base}, 0.0
+        for i, (d, (st, m)) in enumerate(zip(got, stacked)):
+            one = to_device(st, dev)
+            (want_d, _), w = timed(lambda: looped(base, one, m))
+            loop_wall += w
+            max_err(d, want_d, err)
+            if n_steps[i] == steps:
+                max_err(looped(noisy, one, m)[0], want_d, noise)
+        # every local step of every client from the base params: the
+        # cohort with only step k unmasked (the steps before it are no-ops)
+        # against one per-client step on batch k
+        graphed = client.make_cohort_update(learner.model.loss,
+                                            fed.client_lr)
+        step_err, pair_err, loss_rel = {k: 0.0 for k in base}, [], 0.0
+        for k_step in range(max(n_steps)):
+            only = np.zeros_like(masks)
+            only[:, k_step] = masks[:, k_step]
+            cur, cur_loss = graphed(base, inputs, only)
+            for i in range(len(cohort)):
+                if n_steps[i] <= k_step:
+                    continue
+                e = {k: 0.0 for k in base}
+                d, loss = looped(base, {k: v[i, k_step:k_step + 1]
+                                        for k, v in inputs.items()},
+                                 np.ones(1, np.float32))
+                max_err({k: v[i] for k, v in cur.items()}, d, e)
+                for k in step_err:
+                    step_err[k] = max(step_err[k], e[k])
+                pair_err.append(max(e.values()))
+                loss_rel = max(loss_rel, abs(float(cur_loss[i]) / float(loss)
+                                             - 1.0))
+        out[what] = {"clients": len(cohort), "local_steps": n_steps,
+                     "graph_counts": graphs, "graph_wall_s": wall,
+                     "eager_vmapped_wall_s": eager_wall,
+                     "looped_wall_s": loop_wall, "peak_memory_bytes": peak,
+                     "max_abs_err_per_step": step_err,
+                     "steps_within_1e-5": sum(e <= 1e-5 for e in pair_err),
+                     "steps": len(pair_err), "loss_max_rel_err": loss_rel,
+                     "max_abs_err_whole_deltas": err,
+                     "noise_1e-7_max_abs_change_8_steps": noise,
+                     "leaves_not_bit_equal_to_eager": not_equal}
+        print(f"[chip_smoke] cohort step, {what}: {graphs}; graph "
+              f"{wall:.4f} s (the capture included), eager vmapped "
+              f"{eager_wall:.4f} s, looped {loop_wall:.4f} s; peak memory "
+              f"{peak / 2**30:.2f} GiB; against the per-client step, "
+              f"each step from the base params: "
+              f"{out[what]['steps_within_1e-5']} of {len(pair_err)} steps "
+              f"within 1e-5, losses within rel {loss_rel:.3g}, largest "
+              f"difference per leaf {step_err}; whole deltas {err}; the "
+              f"per-client step's own change under a relative noise of "
+              f"1e-7 in the base params over 8 steps {noise}")
+        if not loss_rel <= 1e-5:
+            raise Failed(f"cohort step, {what}: a step's loss differs from "
+                         f"the per-client step's by rel {loss_rel}")
+        # one step may cross a ReLU kink that the other does not: 1e-4
+        # bounds that (lr times one token's share of a unit's gradient)
+        held = step_err if what == "cohort of 16" else err
+        tol = 1e-4 if what == "cohort of 16" else 1e-5
+        bad = {k: e for k, e in held.items() if not e <= tol}
+        if bad:
+            raise Failed(f"cohort step, {what}: deltas differ from the "
+                         f"per-client step by more than {tol}: {bad}")
+        if not_equal:
+            raise Failed(f"cohort step, {what}: the graph replay differs "
+                         f"from the eager vmapped step in {not_equal}")
+    return out
+
+
 # --------------------------------------------------------------- main paths
 def train_path(dev, cfg):
     from repro_torch.configs import FederatedConfig
+    from repro_torch.data import FederatedDataset
+    from repro_torch.federated import client
     from repro_torch.launch import train
     fed = FederatedConfig(
         mode="sync", concurrency=CONCURRENCY, aggregation_goal=GOAL,
@@ -832,6 +1031,7 @@ def train_path(dev, cfg):
     if train.MAX_CLIENT_STEPS != 8 or cfg.param_count() != 15_560_704:
         raise Failed("train path is not at the paper's full width")
     reset_launches()
+    client.reset_graph_counts()
     records = train.run(cfg, fed, ROUNDS, SEQ_LEN, device=dev)
     launches = read_launches()
     print(f"[chip_smoke] launches on the train path: {launches}")
@@ -847,7 +1047,25 @@ def train_path(dev, cfg):
     ppl = [r.perplexity for r in records]
     if len(records) != ROUNDS or not all(math.isfinite(p) for p in ppl):
         raise Failed(f"train path perplexities {ppl}")
-    return records, launches, fed
+    graphs = dict(client.GRAPH_COUNTS)
+    ds = FederatedDataset(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
+                          char_vocab=cfg.char_vocab,
+                          max_word_len=cfg.max_word_len)
+    for r in records:
+        want = max(local_steps(ds, fed, train.MAX_CLIENT_STEPS, c)
+                   for c in r.contributors)
+        print(f"[chip_smoke] train round {r.round}: wall {r.wall_s:.4f} s, "
+              f"{r.graph_replays} graph replays (longest client: {want} "
+              f"steps), {r.graph_captures} captures")
+        if r.graph_replays != want:
+            raise Failed(f"train round {r.round}: expected {want} cohort-step "
+                         f"replays, got {r.graph_replays}")
+    want = {"replays": sum(r.graph_replays for r in records), "captures": 1}
+    if graphs != want or [r.graph_captures for r in records] != \
+            [1] + [0] * (ROUNDS - 1):
+        raise Failed(f"train path graph counts {graphs}, expected {want}, "
+                     f"one capture in round 1")
+    return records, launches, fed, graphs
 
 
 def serve_path(dev):
@@ -939,9 +1157,21 @@ def codec_launches_from_log(result, mode) -> int:
     return log.completed_sessions()
 
 
+def record_calls(learner, calls, marks) -> None:
+    """Wrap the learner's two training calls so that each records the round
+    it falls in (the count of ``marks`` so far) and its client ids."""
+    for name in ("client_deltas", "client_delta"):
+        def spy(ids, *args, _call=getattr(learner, name),
+                _one=name == "client_delta", **kw):
+            calls.append((len(marks), [ids] if _one else list(ids)))
+            return _call(ids, *args, **kw)
+        setattr(learner, name, spy)
+
+
 def experiment_path(dev, mode):
     """Phase 5d in one mode: the port's Experiment at full width."""
     from repro_torch.api import Experiment, ModelRef
+    from repro_torch.federated import client
     spec = experiment_spec(mode, ModelRef("paper-charlm"), SEQ_LEN,
                            CONCURRENCY, GOAL, BATCH)
     exp = Experiment(spec, device=dev)
@@ -951,11 +1181,18 @@ def experiment_path(dev, mode):
     learner = exp.build_learner()
     if learner.device != dev:
         raise Failed(f"the learner runs on {learner.device}, not {dev}")
-    marks = []
+    marks, calls = [], []
+    record_calls(learner, calls, marks)
+
+    def mark(_):
+        marks.append((time.perf_counter(), client.GRAPH_COUNTS["replays"],
+                      client.GRAPH_COUNTS["captures"]))
+
     reset_launches()
-    result = exp.run(on_start=lambda _: marks.append(time.perf_counter()),
-                     on_round=lambda _: marks.append(time.perf_counter()))
+    client.reset_graph_counts()
+    result = exp.run(on_start=mark, on_round=mark)
     launches = read_launches()
+    graphs = dict(client.GRAPH_COUNTS)
     want = codec_launches_from_log(result, mode)
     for name in ("int8_quantize", "int8_dequant_accumulate"):
         if launches[name] != want:
@@ -969,9 +1206,30 @@ def experiment_path(dev, mode):
     if bad or summary["rounds"] != ROUNDS or summary["sessions"] <= 0 or \
             summary["carbon_total_kg"] <= 0:
         raise Failed(f"{mode} summary {summary} (not finite: {bad})")
-    walls = [b - a for a, b in zip(marks, marks[1:])]
+    # replays each call should make, from its clients' batch counts
+    fed, steps = learner.fed, learner.max_steps
+    want_calls = [(r, max(local_steps(learner.dataset, fed, steps, c)
+                          for c in ids)) for r, ids in calls]
+    want_graphs = {"replays": sum(n for _, n in want_calls),
+                   "captures": len({len(ids) for _, ids in calls})}
+    walls = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    replays = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
+    captures = [b[2] - a[2] for a, b in zip(marks, marks[1:])]
+    want_replays = [sum(n for r, n in want_calls if r == i)
+                    for i in range(1, len(marks))]
+    print(f"[chip_smoke] experiment {mode}: update walls "
+          f"{[round(w, 4) for w in walls]} s, graph replays {replays} "
+          f"(from the clients' batch counts: {want_replays}), captures "
+          f"{captures}; {len(calls)} learner calls of "
+          f"{sorted({len(ids) for _, ids in calls})} clients")
+    if graphs != want_graphs or replays != want_replays:
+        raise Failed(f"{mode}: graph counts {graphs} and replays by update "
+                     f"{replays}, expected {want_graphs} and {want_replays} "
+                     f"from the clients' batch counts")
     out = {"mode": mode, "summary": summary, "wall_s": result.wall_s,
-           "round_walls_s": walls, "launches": launches,
+           "round_walls_s": walls, "graph_replays_by_update": replays,
+           "graph_captures_by_update": captures,
+           "learner_calls": len(calls), "launches": launches,
            "launches_from_log": want,
            "participation": result.log.participation(),
            "mean_staleness": result.log.mean_staleness(),
@@ -1230,6 +1488,8 @@ def main() -> int:
             err = check_int8(dev, gen, leaf_shapes)
             err.update(check_attention(dev, gen))
             err.update(check_wkv(dev, gen))
+            phase("3b. the cohort step against the looped client step")
+            cohort = check_cohort(dev)
 
         phase("4. timing at the main paths' shapes")
         timing = time_int8(dev, gen, leaf_shapes)
@@ -1250,7 +1510,7 @@ def main() -> int:
               f"{timing['int8_quantize']['compress_roundtrip_wall_ms']}")
 
         phase("5a. main path: repro_torch.launch.train at full width")
-        records, train_launches, fed = train_path(dev, cfg)
+        records, train_launches, fed, train_graphs = train_path(dev, cfg)
         phase("5b. main path: repro_torch.launch.serve at full width")
         res, serve_launches = serve_path(dev)
         phase("5c. main path: repro_torch.launch.serve, rwkv6-7b at full "
@@ -1292,8 +1552,13 @@ def main() -> int:
             "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "check": CHECKS[name], **extra})
+    print(json.dumps({"cohort_step": cohort}))
     print(json.dumps({"rounds": [{"round": r.round, "perplexity": r.perplexity,
-                                  "wall_s": r.wall_s} for r in records]}))
+                                  "wall_s": r.wall_s,
+                                  "graph_replays": r.graph_replays,
+                                  "graph_captures": r.graph_captures}
+                                 for r in records],
+                      "graph_counts": train_graphs}))
     print(json.dumps({"serve": {
         "arch": SERVE_ARCH, "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
         "gen": GEN, "prefill_s": res.prefill_s, "decode_s": res.decode_s,

@@ -5,8 +5,10 @@ It speaks the reference engine's learner protocol (``real``, ``version``,
 ``eval_perplexity``), so it can stand in for the reference ``RealLearner``
 inside the reference ``Experiment``. It holds server params + FedAdam state
 on its device and, for FedBuff, a ring of recent param versions so stale
-clients train against the model they were sent. Deltas optionally
-round-trip the int8 wire codec (the CUDA kernels on the card).
+clients train against the model they were sent. Clients train as one
+batched local step over the cohort (``make_cohort_update``; on the card a
+CUDA graph replay a step). Deltas optionally round-trip the int8 wire
+codec (the CUDA kernels on the card).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import FederatedConfig, ModelConfig, RunConfig
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.federated import aggregation
-from repro_torch.federated.client import (make_client_update, stack_batches,
+from repro_torch.federated.client import (make_cohort_update, stack_batches,
                                           to_device)
 from repro_torch.models import get_model
 from repro_torch.optim import server_optimizer
@@ -54,7 +56,8 @@ class RealLearner:
                                     b1=fed.adam_beta1, b2=fed.adam_beta2,
                                     eps=fed.adam_eps)
         self.opt_state = self.opt.init(self.params)
-        self._client_update = make_client_update(self.model.loss, fed.client_lr)
+        self._cohort_update = make_cohort_update(self.model.loss,
+                                                 fed.client_lr)
         self.version = 0
         # updates are functional (new tensors each step), so the ring holds
         # references, not copies
@@ -78,36 +81,44 @@ class RealLearner:
         return self.params if version is None or version == self.version \
             else self.params_at(version)
 
-    def _train(self, base: Params, client_id: int) -> Tuple[Params, float]:
-        batches = self.dataset.client_batches(
-            client_id, self.fed.client_batch_size, self.fed.local_epochs)
-        stacked, mask = stack_batches(batches, self.max_steps)
-        delta, _ = self._client_update(base, to_device(stacked, self.device),
-                                       mask)
-        n_ex = min(len(batches), self.max_steps) * self.fed.client_batch_size
-        return delta, float(n_ex)
+    def _train(self, base: Params, client_ids) -> Tuple[Params, List[float]]:
+        """The cohort's stacked (N, ...) deltas, trained from `base` in one
+        batched local step a step, and each client's example weight."""
+        stacked, masks, n_ex = [], [], []
+        for cid in client_ids:
+            batches = self.dataset.client_batches(
+                cid, self.fed.client_batch_size, self.fed.local_epochs)
+            st, m = stack_batches(batches, self.max_steps)
+            stacked.append(st)
+            masks.append(m)
+            n_ex.append(float(min(len(batches), self.max_steps)
+                              * self.fed.client_batch_size))
+        cohort = {k: np.stack([s[k] for s in stacked]) for k in stacked[0]}
+        deltas, _ = self._cohort_update(base, to_device(cohort, self.device),
+                                        np.stack(masks))
+        return deltas, n_ex
 
     # -------------------------------------------------------------- learner
     def client_deltas(self, client_ids, version: Optional[int] = None):
-        """Cohort update: every client trains from the same server params
-        (one after another), then the STACKED (N, ...) deltas go through the
-        codec as one tensor per leaf, as the reference's vmapped path does."""
-        base = self._base(version)
-        deltas, n_ex = zip(*(self._train(base, cid) for cid in client_ids))
-        stacked = {k: torch.stack([d[k] for d in deltas]) for k in base}
+        """Vmapped cohort update: all clients train together from the same
+        server params, then the STACKED (N, ...) deltas go through the codec
+        as one tensor per leaf, as the reference's vmapped path does."""
+        stacked, n_ex = self._train(self._base(version), client_ids)
         if self.fed.compression == "int8":
             stacked = aggregation.compress_roundtrip(
                 stacked, block=self.fed.quant_block)
         return ([{k: v[i] for k, v in stacked.items()}
-                 for i in range(len(client_ids))], list(n_ex))
+                 for i in range(len(client_ids))], n_ex)
 
     def client_delta(self, client_id: int, version: Optional[int] = None):
-        """Run real local training; returns (delta dict, example weight)."""
-        delta, n_ex = self._train(self._base(version), client_id)
+        """Run real local training (the cohort step at N = 1); returns
+        (delta dict, example weight)."""
+        stacked, n_ex = self._train(self._base(version), [client_id])
+        delta = {k: v[0] for k, v in stacked.items()}
         if self.fed.compression == "int8":
             delta = aggregation.compress_roundtrip(delta,
                                                    block=self.fed.quant_block)
-        return delta, n_ex
+        return delta, n_ex[0]
 
     def apply(self, deltas: List[Params], weights: List[float], *,
               n_contributors: int = 0, mean_staleness: float = 0.0,

@@ -4,11 +4,13 @@
 
 Runs the round of ``chip_smoke.py``'s main path (paper-charlm at full
 width, concurrency 20, goal 16, seq_len 64, client batch 16, 8 client
-steps, int8 uplink): one warm-up round, then one round timed by phase with
-the device synchronised at each phase's end, then one round under
-``torch.profiler``, whose device events give the kernel time by kind and
-the device's busy share of the round. Prints one JSON object as its last
-line. Needs a CUDA device.
+steps, int8 uplink), whose clients train as one batched local step a
+step, replayed from a CUDA graph: one warm-up round, then one round timed
+by phase with the device synchronised at each phase's end, with its graph
+replays and peak device memory, then one round under ``torch.profiler``,
+whose device events give the kernel time by kind and the device's busy
+share of the round. Prints one JSON object as its last line. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import FederatedConfig, RunConfig, get_config
 from repro_torch.data import FederatedDataset
-from repro_torch.federated import RealLearner
+from repro_torch.federated import RealLearner, client
 from repro_torch.launch import train
 
 
@@ -68,20 +70,24 @@ def main() -> int:
         phases = {}
         batches, phases["host data (measured apart)"] = timed(
             lambda: [ds.client_batches(c, fed.client_batch_size) for c in ids])
-        steps = sum(min(len(b), learner.max_steps) for b in batches)
+        steps = [min(len(b), learner.max_steps) for b in batches]
+        client.reset_graph_counts()
         (d, w), phases["client_deltas"] = timed(
             lambda: learner.client_deltas(ids))
+        replays = client.GRAPH_COUNTS["replays"]
         _, phases["apply (FedAdam)"] = timed(lambda: learner.apply(d, w))
         _, phases["eval_perplexity"] = timed(learner.eval_perplexity)
-        return phases, steps
+        return phases, steps, replays
 
     one_round()                                     # warm-up
-    phases, steps = one_round()
+    torch.cuda.reset_peak_memory_stats(dev)
+    phases, steps, replays = one_round()
+    peak = torch.cuda.max_memory_allocated(dev)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, prof_steps = one_round()
+        _, prof_steps, prof_replays = one_round()
         torch.cuda.synchronize(dev)
         prof_wall = time.perf_counter() - t0
     by_kind, by_name, launches = defaultdict(float), defaultdict(float), 0
@@ -96,9 +102,15 @@ def main() -> int:
     result = {
         "device": torch.cuda.get_device_name(dev),
         "round_phases_s": phases,
-        "client_steps_in_round": steps,
+        "round_wall_s": sum(v for k, v in phases.items()
+                            if k != "host data (measured apart)"),
+        "client_steps_in_round": sum(steps),
+        "graph_replays_in_round": replays,
+        "largest_client_steps": max(steps),
+        "peak_memory_bytes": peak,
         "profiled_round": {
-            "wall_s": prof_wall, "client_steps": prof_steps,
+            "wall_s": prof_wall, "client_steps": sum(prof_steps),
+            "graph_replays": prof_replays,
             "device_events": launches,
             "device_busy_s": busy if busy > 0 else "not measured",
             "device_idle_share": 1 - busy / prof_wall if busy > 0

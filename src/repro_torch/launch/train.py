@@ -21,7 +21,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import FederatedConfig, RunConfig, get_config, reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import FederatedDataset
-from repro_torch.federated import RealLearner
+from repro_torch.federated import RealLearner, client
 
 _POPULATION = 5_000_000  # eligible-device pool the coordinator selects from
 MAX_CLIENT_STEPS = 8
@@ -53,12 +53,17 @@ class RoundRecord:
     round: int
     perplexity: float
     wall_s: float
+    contributors: List[int]
+    graph_replays: int            # cohort-step CUDA graph replays (card)
+    graph_captures: int
 
 
 def run(cfg: ModelConfig, fed: FederatedConfig, rounds: int, seq_len: int,
         device: torch.device | str = "cuda") -> List[RoundRecord]:
     """`rounds` sync rounds; returns one record per round. Each round's wall
-    time ends with the device synchronised after the eval."""
+    time ends with the device synchronised after the eval. The records
+    count the round's cohort-step graph replays and captures from
+    ``client.GRAPH_COUNTS``, which they do not reset."""
     dev = resolve_device(device)
     ds = FederatedDataset(vocab_size=cfg.vocab_size, seq_len=seq_len,
                           char_vocab=cfg.char_vocab,
@@ -72,6 +77,7 @@ def run(cfg: ModelConfig, fed: FederatedConfig, rounds: int, seq_len: int,
     out = []
     for r in range(1, rounds + 1):
         t0 = time.perf_counter()
+        graphs0 = dict(client.GRAPH_COUNTS)
         cohort = _select_cohort(rng, fed.concurrency, _POPULATION)
         contributors = cohort[:fed.aggregation_goal].tolist()
         deltas, weights = learner.client_deltas(contributors)
@@ -79,8 +85,13 @@ def run(cfg: ModelConfig, fed: FederatedConfig, rounds: int, seq_len: int,
         ppl = learner.eval_perplexity()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        rec = RoundRecord(r, ppl, time.perf_counter() - t0)
-        print(f"[train] round {r}: perplexity {ppl:.3f} wall {rec.wall_s:.3f} s")
+        rec = RoundRecord(
+            r, ppl, time.perf_counter() - t0, contributors,
+            client.GRAPH_COUNTS["replays"] - graphs0["replays"],
+            client.GRAPH_COUNTS["captures"] - graphs0["captures"])
+        print(f"[train] round {r}: perplexity {ppl:.3f} wall {rec.wall_s:.3f} "
+              f"s, {rec.graph_replays} graph replays, {rec.graph_captures} "
+              f"captures")
         out.append(rec)
     return out
 

@@ -104,7 +104,10 @@ def lm_loss(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     (B, S) int. Mean nll of labels[:, 1:] given x[:, :-1] over the
     optional (B, S-1) mask. The sequence is cut into `chunk`-sized slices
     whose logits are recomputed in the backward pass (activation
-    checkpointing), so peak logits memory is (B, chunk, V).
+    checkpointing), so peak logits memory is (B, chunk, V). A sequence of
+    one chunk is not checkpointed: that would save nothing, and
+    ``torch.func`` (the vmapped cohort step) cannot differentiate through a
+    checkpoint.
     """
     xs = x[:, :-1, :]
     ys = labels[:, 1:].long()
@@ -115,7 +118,7 @@ def lm_loss(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     for lo in range(0, n, chunk):
         args = (xs[:, lo:lo + chunk], w, ys[:, lo:lo + chunk],
                 m[:, lo:lo + chunk])
-        if torch.is_grad_enabled():
+        if n > chunk and torch.is_grad_enabled():
             tot = tot + checkpoint(_chunk_nll_sum, *args, use_reentrant=False)
         else:
             tot = tot + _chunk_nll_sum(*args)
