@@ -46,14 +46,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      K1 over a round's table of 24 leaves eagerly and in a CUDA graph,
      beside the per-leaf loop timed the same two ways, and the host wall
      of ``compress_roundtrip`` for one round;
-  5. drive the port's three main paths, each with the kernels' launch counts
+  5. drive the port's main paths, each with the kernels' launch counts
      reset just before and read just after:
-     a. ``repro_torch.launch.train``: 3 sync FedAvg rounds of paper-charlm
-        at full width (15,560,704 params), concurrency 20, goal 16, seq_len
-        64, client batch 16, 8 client steps, int8 uplink; exactly one K1
-        and one K2 launch a round, and as many cohort-step graph replays
-        as the round's longest client has local steps (from the clients'
-        batch counts), one capture in all;
+     a. the train CLI, ``repro_torch.launch.train.main(["--spec", S,
+        "--json", J, "--ckpt", D])``, on 5d's full-width sync spec S
+        (written with ``spec.save``): 3 sync rounds of paper-charlm at full
+        width (15,560,704 params), concurrency 20, goal 16, seq_len 64,
+        client batch 16, 8 client steps, int8 uplink; the K1/K2 launches
+        the engine's record implies (one of each a round) and, for each
+        learner call, as many cohort-step graph replays as its longest
+        client has local steps; after 5d, its JSON summary equals 5d's
+        sync summary and every leaf of the checkpoint D equals 5d's sync
+        learner's final params, bit for bit;
      b. ``repro_torch.launch.serve``: smollm-135m at full width (30 layers,
         134,515,008 params, f32), 8 requests of 1024 prompt tokens, then 64
         greedy tokens each; exactly 30 K3 and 30 x 64 K4 launches;
@@ -70,6 +74,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
         engine made as many graph replays as its longest client has local
         steps (a sync cohort) or as its one client has (async), with one
         capture for each cohort size;
+     e. the spec CLI, ``repro_torch.api.__main__.main([S_async,
+        "--roundtrip-check", "--out", R])`` on 5d's async spec (its two
+        runs equal, as its own assertion holds, and equal to 5d's async
+        run), then ``sweep([S_sync, S_async])`` with ``workers=1`` (in this
+        process) and ``workers=2`` (two spawned worker processes on this
+        card, which load phase 1's kernel builds): every summary equals
+        5d's in its mode bit for bit; each wall and the card's peak memory
+        while the sweep runs are printed, and what the two in-process runs
+        hold on the card (graph pools, the default pool by stream, beyond
+        the reserved segments);
   6. check the outputs: finite perplexities, and on a small config one
      round on the card agrees with the same round on the CPU (plain
      versions of the kernels); the three modes of 5d at a small size give
@@ -101,6 +115,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -886,8 +901,8 @@ def check_cohort(dev):
     from repro_torch.configs import FederatedConfig, RunConfig, get_config
     from repro_torch.data import FederatedDataset
     from repro_torch.federated import RealLearner, client
+    from repro_torch.api import ExperimentSpec
     from repro_torch.federated.client import stack_batches, to_device
-    from repro_torch.launch import train
     cfg = get_config("paper-charlm")
     fed = FederatedConfig(
         mode="sync", concurrency=CONCURRENCY, aggregation_goal=GOAL,
@@ -896,7 +911,7 @@ def check_cohort(dev):
     ds = FederatedDataset(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
                           char_vocab=cfg.char_vocab,
                           max_word_len=cfg.max_word_len)
-    steps = train.MAX_CLIENT_STEPS
+    steps = ExperimentSpec().max_client_steps
     learner = RealLearner(cfg, fed, RunConfig(), ds, max_client_steps=steps,
                           seed=SEED, device=dev)
     if cfg.param_count() != 15_560_704 or steps != 8:
@@ -1019,53 +1034,122 @@ def check_cohort(dev):
 
 
 # --------------------------------------------------------------- main paths
-def train_path(dev, cfg):
-    from repro_torch.configs import FederatedConfig
-    from repro_torch.data import FederatedDataset
+def recorded_runs(module):
+    """A context in which ``module.Experiment`` is a subclass whose ``run``
+    records, for each run: the Experiment, its Result, its learner's
+    training calls (``record_calls``), the marks (clock, cohort-step graph
+    replays, captures) at its start and at each server update, and the
+    kernel launches and graph counts the run added. Yields the list of
+    records. The CLIs and the sweep build their Experiments by that name,
+    so their own code runs unchanged."""
+    import contextlib
     from repro_torch.federated import client
+
+    @contextlib.contextmanager
+    def swapped():
+        base, runs = module.Experiment, []
+
+        class Recorded(base):
+            def run(self, on_round=None, **kw):
+                if self.learner is None:
+                    self.build_learner()
+                marks, calls = [], []
+                if self.spec.learner == "real":
+                    record_calls(self.learner, calls, marks)
+
+                def stamp(*_):
+                    marks.append((time.perf_counter(),
+                                  client.GRAPH_COUNTS["replays"],
+                                  client.GRAPH_COUNTS["captures"]))
+
+                def round_done(ev):
+                    stamp()
+                    if on_round is not None:
+                        on_round(ev)
+
+                launches0, graphs0 = read_launches(), dict(
+                    client.GRAPH_COUNTS)
+                res = super().run(on_round=round_done, on_start=stamp, **kw)
+                runs.append({
+                    "experiment": self, "result": res, "calls": calls,
+                    "marks": marks,
+                    "launches": {k: v - launches0[k]
+                                 for k, v in read_launches().items()},
+                    "graphs": {k: v - graphs0[k]
+                               for k, v in client.GRAPH_COUNTS.items()}})
+                return res
+
+        module.Experiment = Recorded
+        try:
+            yield runs
+        finally:
+            module.Experiment = base
+    return swapped()
+
+
+def write_spec(workdir: Path, mode: str) -> Path:
+    """5d's full-width spec in ``mode``, written with ``spec.save``."""
+    from repro_torch.api import ModelRef
+    spec = experiment_spec(mode, ModelRef("paper-charlm"), SEQ_LEN,
+                           CONCURRENCY, GOAL, BATCH)
+    path = workdir / f"{mode}.json"
+    spec.save(str(path))
+    return path
+
+
+def train_cli_path(dev, workdir: Path):
+    """Phase 5a: ``repro_torch.launch.train.main(["--spec", S, "--json", J,
+    "--ckpt", D])`` on 5d's full-width sync spec S. Held here: the run's
+    K1/K2 launches against what the engine's record implies, its graph
+    replays against its clients' batch counts (``held_run``); held after
+    5d (``cli_equals_experiment``): the JSON summary and every leaf of the
+    checkpoint bit-equal to 5d's sync run."""
     from repro_torch.launch import train
-    fed = FederatedConfig(
-        mode="sync", concurrency=CONCURRENCY, aggregation_goal=GOAL,
-        client_lr=0.3, server_lr=0.02, client_batch_size=BATCH,
-        compression="int8", seed=SEED)
-    if train.MAX_CLIENT_STEPS != 8 or cfg.param_count() != 15_560_704:
-        raise Failed("train path is not at the paper's full width")
+    spec_path = write_spec(workdir, "sync")
+    out, ckpt = workdir / "train.json", workdir / "ckpt"
     reset_launches()
-    client.reset_graph_counts()
-    records = train.run(cfg, fed, ROUNDS, SEQ_LEN, device=dev)
+    with recorded_runs(train) as runs:
+        rc = train.main(["--spec", str(spec_path), "--json", str(out),
+                         "--ckpt", str(ckpt), "--device", str(dev)])
     launches = read_launches()
-    print(f"[chip_smoke] launches on the train path: {launches}")
-    for name in ("int8_quantize", "int8_dequant_accumulate"):
-        if launches[name] == 0:
-            raise Failed(f"{name} never ran on the train path")
-    # one K1 launch over the cohort's table of leaves and one K2 launch
-    # (the dequantize of the whole layout) for each round's compress
-    for name in ("int8_quantize", "int8_dequant_accumulate"):
-        if launches[name] != ROUNDS:
-            raise Failed(f"expected {ROUNDS} {name} launches (one a round), "
-                         f"got {launches[name]}")
-    ppl = [r.perplexity for r in records]
-    if len(records) != ROUNDS or not all(math.isfinite(p) for p in ppl):
-        raise Failed(f"train path perplexities {ppl}")
-    graphs = dict(client.GRAPH_COUNTS)
-    ds = FederatedDataset(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
-                          char_vocab=cfg.char_vocab,
-                          max_word_len=cfg.max_word_len)
-    for r in records:
-        want = max(local_steps(ds, fed, train.MAX_CLIENT_STEPS, c)
-                   for c in r.contributors)
-        print(f"[chip_smoke] train round {r.round}: wall {r.wall_s:.4f} s, "
-              f"{r.graph_replays} graph replays (longest client: {want} "
-              f"steps), {r.graph_captures} captures")
-        if r.graph_replays != want:
-            raise Failed(f"train round {r.round}: expected {want} cohort-step "
-                         f"replays, got {r.graph_replays}")
-    want = {"replays": sum(r.graph_replays for r in records), "captures": 1}
-    if graphs != want or [r.graph_captures for r in records] != \
-            [1] + [0] * (ROUNDS - 1):
-        raise Failed(f"train path graph counts {graphs}, expected {want}, "
-                     f"one capture in round 1")
-    return records, launches, fed, graphs
+    if rc != 0 or len(runs) != 1:
+        raise Failed(f"the train CLI returned {rc} after {len(runs)} runs")
+    rec = runs[0]
+    if rec["experiment"].model_config.param_count() != 15_560_704 or \
+            rec["experiment"].spec.max_client_steps != 8:
+        raise Failed("the train CLI's run is not at the paper's full width")
+    if rec["launches"] != launches:
+        raise Failed(f"train CLI: launches {launches} outside its run "
+                     f"({rec['launches']})")
+    held = held_run("sync", rec)
+    held["json_summary"] = json.loads(out.read_text())
+    held["checkpoint"] = str(ckpt)
+    return held
+
+
+def cli_equals_experiment(cli, experiment, params) -> None:
+    """5a's JSON summary equals 5d's sync summary, and every leaf of 5a's
+    checkpoint equals 5d's sync learner's final params, bit for bit."""
+    import numpy as np
+    from repro_torch.checkpoint import load_checkpoint
+    if cli["json_summary"] != experiment["summary"] or \
+            cli["summary"] != experiment["summary"]:
+        raise Failed(f"the train CLI's summary {cli['json_summary']} is not "
+                     f"5d's sync summary {experiment['summary']}")
+    tree, meta = load_checkpoint(cli["checkpoint"])
+    got = tree["params"]
+    if sorted(got) != sorted(params):
+        raise Failed(f"checkpoint keys {sorted(got)} vs {sorted(params)}")
+    differ = [k for k, v in params.items()
+              if not (got[k].dtype == np.float32 and
+                      np.array_equal(got[k], v.cpu().numpy()))]
+    if differ or meta.get("rounds") != ROUNDS:
+        raise Failed(f"checkpoint leaves {differ} differ from 5d's sync "
+                     f"params (meta {meta})")
+    print(f"[chip_smoke] 5a (the train CLI) equals 5d's sync run bit for "
+          f"bit: summary, JSON and the {len(params)} checkpoint leaves; "
+          f"update walls 5a {[round(w, 4) for w in cli['round_walls_s']]} "
+          f"s, 5d {[round(w, 4) for w in experiment['round_walls_s']]} s")
 
 
 def serve_path(dev):
@@ -1159,17 +1243,23 @@ def codec_launches_from_log(result, mode) -> int:
 
 def record_calls(learner, calls, marks) -> None:
     """Wrap the learner's two training calls so that each records the round
-    it falls in (the count of ``marks`` so far) and its client ids."""
+    it falls in (the count of ``marks`` so far) and its client ids. The
+    wrappers reach the learner through a weak reference and its class's
+    functions, so they put it in no reference cycle: a dropped learner
+    (and its graphs) is freed at once, not by a later collection."""
+    import weakref
+    ref = weakref.ref(learner)
     for name in ("client_deltas", "client_delta"):
-        def spy(ids, *args, _call=getattr(learner, name),
+        def spy(ids, *args, _call=getattr(type(learner), name),
                 _one=name == "client_delta", **kw):
             calls.append((len(marks), [ids] if _one else list(ids)))
-            return _call(ids, *args, **kw)
+            return _call(ref(), ids, *args, **kw)
         setattr(learner, name, spy)
 
 
 def experiment_path(dev, mode):
-    """Phase 5d in one mode: the port's Experiment at full width."""
+    """Phase 5d in one mode: the port's Experiment at full width. Returns
+    what ``held_run`` held and the learner's final params."""
     from repro_torch.api import Experiment, ModelRef
     from repro_torch.federated import client
     spec = experiment_spec(mode, ModelRef("paper-charlm"), SEQ_LEN,
@@ -1191,8 +1281,22 @@ def experiment_path(dev, mode):
     reset_launches()
     client.reset_graph_counts()
     result = exp.run(on_start=mark, on_round=mark)
-    launches = read_launches()
-    graphs = dict(client.GRAPH_COUNTS)
+    rec = {"experiment": exp, "result": result, "calls": calls,
+           "marks": marks, "launches": read_launches(),
+           "graphs": dict(client.GRAPH_COUNTS)}
+    return held_run(mode, rec), exp.learner.params
+
+
+def held_run(mode, rec):
+    """Holds one full-width run (a record of ``recorded_runs`` or of
+    ``experiment_path``): its K1/K2 launches equal what the engine's
+    record implies and no other kernel ran; its summary is finite with
+    ROUNDS rounds, sessions and carbon; each learner call made as many
+    graph replays as its longest client has local steps, and one capture
+    ran for each cohort size. Returns what it printed."""
+    result, calls, marks = rec["result"], rec["calls"], rec["marks"]
+    learner, launches, graphs = rec["experiment"].learner, rec["launches"], \
+        rec["graphs"]
     want = codec_launches_from_log(result, mode)
     for name in ("int8_quantize", "int8_dequant_accumulate"):
         if launches[name] != want:
@@ -1243,20 +1347,214 @@ def experiment_path(dev, mode):
     return out
 
 
+def peak_device_memory(fn):
+    """fn() while a thread polls the card's used memory (all processes,
+    ``cudaMemGetInfo``) every 20 ms; returns (fn's value, the used bytes
+    before, the peak used bytes). Earlier runs' learners (and their
+    graphs' memory pools) are released first."""
+    import gc
+    import threading
+    import torch
+
+    def used():
+        free, total = torch.cuda.mem_get_info(0)
+        return total - free
+    gc.collect()
+    torch.cuda.empty_cache()
+    before, peak, done = used(), [0], threading.Event()
+
+    def poll():
+        while not done.is_set():
+            peak[0] = max(peak[0], used())
+            done.wait(0.02)
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        th.join()
+    return out, before, max(peak[0], used())
+
+
+def card_memory(dev):
+    """What this process holds on the card, in bytes: the caching
+    allocator's segments in its default pool (by stream) and in each CUDA
+    graph's private pool, the bytes allocated in them, and the card's used
+    memory beyond the reserved segments (with no other process on the
+    card: the CUDA context, library workspaces and kernel images)."""
+    import torch
+    index = torch.device(dev).index
+    index = torch.cuda.current_device() if index is None else index
+    by_stream, graph_pools = {}, {}
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != index:
+            continue
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        if pool == (0, 0):
+            key = str(seg["stream"])
+            by_stream[key] = by_stream.get(key, 0) + seg["total_size"]
+        else:
+            graph_pools[str(pool)] = graph_pools.get(str(pool), 0) + \
+                seg["total_size"]
+    free, total = torch.cuda.mem_get_info(index)
+    reserved = torch.cuda.memory_reserved(index)
+    return {"allocated": torch.cuda.memory_allocated(index),
+            "reserved": reserved,
+            "default_pool_by_stream": sorted(by_stream.values(),
+                                             reverse=True),
+            "graph_pools": sorted(graph_pools.values(), reverse=True),
+            "used_beyond_reserved": total - free - reserved}
+
+
+def _gib(n):
+    return round(n / 2**30, 3)
+
+
+def spec_cli_and_sweep_path(dev, workdir: Path, experiments):
+    """Phase 5e: ``repro_torch.api.__main__.main([S_async,
+    "--roundtrip-check", "--out", R])`` on 5d's full-width async spec (its
+    ``s == s2`` must hold), then ``sweep([S_sync, S_async])`` with
+    ``workers=1`` (in this process) and ``workers=2`` (two spawned worker
+    processes on this card). Every run's summary must equal 5d's in its
+    mode bit for bit. The in-process runs are held as 5d's are
+    (``held_run``); the spawned workers launch nothing in this process,
+    and their Results must cross the pipe with float perplexities."""
+    import gc
+    import importlib
+    import warnings
+    import torch
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.api import __main__ as api_cli
+    # the submodule, not the same-named function the package exports
+    sweep_mod = importlib.import_module("repro_torch.api.sweep")
+    want = {e["mode"]: e["summary"] for e in experiments}
+    paths = {m: write_spec(workdir, m) for m in ("sync", "async")}
+    out = {}
+
+    def same(mode, summary, what):
+        if summary != want[mode]:
+            raise Failed(f"{what}: {mode} summary {summary} is not 5d's "
+                         f"{want[mode]}")
+
+    # the spec CLI's round trip: two runs of the async spec
+    result_path = workdir / "roundtrip.json"
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_runs(api_cli) as runs:
+        rc = api_cli.main([str(paths["async"]), "--roundtrip-check", "--out",
+                           str(result_path), "--quiet", "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0 or len(runs) != 2:
+        raise Failed(f"the spec CLI returned {rc} after {len(runs)} runs")
+    if {k: sum(r["launches"][k] for r in runs) for k in launches} != launches:
+        raise Failed(f"spec CLI: launches {launches} outside its runs")
+    held = [held_run("async", r) for r in runs]
+    for h in held:
+        same("async", h["summary"], "the spec CLI --roundtrip-check")
+    same("async", json.loads(result_path.read_text())["summary"],
+         "the spec CLI's --out")
+    out["roundtrip_check"] = {"wall_s": wall,
+                              "run_walls_s": [h["wall_s"] for h in held],
+                              "round_walls_s": [h["round_walls_s"]
+                                                for h in held],
+                              "launches": launches}
+    print(f"[chip_smoke] spec CLI --roundtrip-check: both runs equal 5d's "
+          f"async run; run walls {[round(h['wall_s'], 4) for h in held]} s, "
+          f"call {wall:.2f} s")
+
+    specs = [ExperimentSpec.load(str(paths[m])) for m in ("sync", "async")]
+    from repro_torch.kernels import _build
+    for workers in (1, 2):
+        built = sorted((p.name, p.stat().st_mtime_ns)
+                       for p in _build.BUILD_DIR.iterdir())
+        reset_launches()
+        with recorded_runs(sweep_mod) as runs, warnings.catch_warnings():
+            # a pool that cannot start falls back in-process with a
+            # RuntimeWarning: here that fails the phase
+            warnings.simplefilter("error", RuntimeWarning)
+            t0 = time.perf_counter()
+            results, before, peak = peak_device_memory(
+                lambda: sweep_mod.sweep(specs, workers=workers,
+                                        device=str(dev)))
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        if sorted((p.name, p.stat().st_mtime_ns)
+                  for p in _build.BUILD_DIR.iterdir()) != built:
+            raise Failed(f"sweep workers={workers} rebuilt kernels: the "
+                         f"workers must load phase 1's builds")
+        for spec, r in zip(specs, results):
+            same(spec.federated.mode, r.summary(), f"sweep workers={workers}")
+            if type(r.final_perplexity) is not float or \
+                    type(r.smoothed_perplexity) is not float:
+                raise Failed(f"sweep workers={workers}: a Result holds "
+                             f"{type(r.final_perplexity)} perplexities")
+        if workers == 1:
+            if len(runs) != 2:
+                raise Failed(f"sweep workers=1 made {len(runs)} runs here")
+            for spec, rec in zip(specs, runs):
+                held_run(spec.federated.mode, rec)
+            if {k: sum(rec["launches"][k] for rec in runs)
+                    for k in launches} != launches:
+                raise Failed(f"sweep: launches {launches} outside its runs")
+            captures = [rec["graphs"]["captures"] for rec in runs]
+            # a record reaches every run's learner (through its class's
+            # closure): drop them before the next memory probe, and read
+            # what the two runs' learners held
+            held = card_memory(dev)
+            del rec
+            runs.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            released = card_memory(dev)
+            out["memory_of_two_runs"] = {"captures": captures,
+                                         "held": held, "released": released}
+            print(f"[chip_smoke] what the two in-process runs hold on the "
+                  f"card ({captures} graph captures): "
+                  f"{len(held['graph_pools'])} graph pools "
+                  f"{[_gib(b) for b in held['graph_pools']]} GiB, the "
+                  f"default pool by stream "
+                  f"{[_gib(b) for b in held['default_pool_by_stream']]} GiB, "
+                  f"allocated {_gib(held['allocated'])} of reserved "
+                  f"{_gib(held['reserved'])} GiB, beyond reserved "
+                  f"{_gib(held['used_beyond_reserved'])} GiB; after their "
+                  f"release: reserved {_gib(released['reserved'])} GiB "
+                  f"({len(released['graph_pools'])} graph pools), beyond "
+                  f"reserved {_gib(released['used_beyond_reserved'])} GiB")
+        elif runs or any(launches.values()):
+            raise Failed(f"sweep workers=2 ran {len(runs)} runs and "
+                         f"launched {launches} in this process, not in its "
+                         f"workers")
+        out[f"sweep_workers_{workers}"] = {
+            "wall_s": wall, "run_walls_s": [r.wall_s for r in results],
+            "device_used_bytes_before": before,
+            "device_used_bytes_peak": peak,
+            "device_bytes_added_at_peak": peak - before,
+            "launches_here": launches}
+        print(f"[chip_smoke] sweep workers={workers}: both summaries equal "
+              f"5d's, the kernels loaded from phase 1's builds; call "
+              f"{wall:.2f} s, run walls "
+              f"{[round(r.wall_s, 3) for r in results]} s; card memory used "
+              f"{before / 2**30:.2f} GiB before, peak {peak / 2**30:.2f} GiB "
+              f"(+{(peak - before) / 2**30:.2f} GiB)")
+    return out
+
+
 # ------------------------------------------------------------------ outputs
 def small_experiments(dev):
-    """The three modes of 5d at a small size (train.reduced_config,
-    seq_len 16), on the card and on the CPU from the same weights: equal
-    summaries but for the perplexity (rel 1e-3, as in small_round), equal
-    participation and mean staleness."""
-    from repro_torch.api import Experiment, ModelRef
+    """The three modes of 5d at a small size (the train CLI's
+    ``reduced_model_ref``, seq_len 16), on the card and on the CPU from the
+    same weights: equal summaries but for the perplexity (rel 1e-3, as in
+    small_round), equal participation and mean staleness."""
+    from repro_torch.api import Experiment
     from repro_torch.federated import RealLearner
     from repro_torch.launch import train
     from repro_torch.weights import params_to_numpy
-    small = train.reduced_config("paper-charlm")
+    ref = train.reduced_model_ref("paper-charlm")
+    small = ref.resolve()
     for mode in MODES:
-        spec = experiment_spec(mode, ModelRef.from_config(small), 16,
-                               concurrency=8, goal=6, batch=8)
+        spec = experiment_spec(mode, ref, 16, concurrency=8, goal=6, batch=8)
         cpu_exp = Experiment(spec, device="cpu")
         cpu_learner = cpu_exp.build_learner()
         card_learner = RealLearner(
@@ -1282,13 +1580,18 @@ def small_experiments(dev):
               f"{want['perplexity']:.6f}")
 
 
-def small_round(dev, fed):
+def small_round(dev):
+    """One round of 5d's sync settings at a small size, on the card and on
+    the CPU from the same weights: perplexity within rel 1e-3."""
+    from repro_torch.api import ModelRef
     from repro_torch.configs import RunConfig
     from repro_torch.data import FederatedDataset
     from repro_torch.federated import RealLearner
     from repro_torch.launch import train
     from repro_torch.weights import params_to_numpy
-    small = train.reduced_config("paper-charlm")
+    small = train.reduced_model_ref("paper-charlm").resolve()
+    fed = experiment_spec("sync", ModelRef("paper-charlm"), SEQ_LEN,
+                          CONCURRENCY, GOAL, BATCH).federated
     ds = FederatedDataset(vocab_size=small.vocab_size, seq_len=16,
                           char_vocab=small.char_vocab,
                           max_word_len=small.max_word_len)
@@ -1509,18 +1812,30 @@ def main() -> int:
         print(f"[chip_smoke] compress_roundtrip wall for one round: "
               f"{timing['int8_quantize']['compress_roundtrip_wall_ms']}")
 
-        phase("5a. main path: repro_torch.launch.train at full width")
-        records, train_launches, fed, train_graphs = train_path(dev, cfg)
+        workdir = ROOT / "build" / "chip_smoke"
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        phase("5a. main path: the train CLI (repro_torch.launch.train) at "
+              "full width")
+        cli = train_cli_path(dev, workdir)
         phase("5b. main path: repro_torch.launch.serve at full width")
         res, serve_launches = serve_path(dev)
         phase("5c. main path: repro_torch.launch.serve, rwkv6-7b at full "
               "width")
         rwkv_res, rwkv_launches, rwkv_run_s = rwkv_serve_path(dev)
         phase("5d. main path: repro_torch.api.Experiment at full width")
-        experiments = [experiment_path(dev, mode) for mode in MODES]
+        experiments, final_params = [], {}
+        for mode in MODES:
+            e, final_params[mode] = experiment_path(dev, mode)
+            experiments.append(e)
+        cli_equals_experiment(cli, experiments[0], final_params["sync"])
+        del final_params
+        phase("5e. main path: the spec CLI (repro_torch.api) and sweep at "
+              "full width")
+        spec_cli_sweep = spec_cli_and_sweep_path(dev, workdir, experiments)
 
         phase("6. outputs")
-        small_round(dev, fed)
+        small_round(dev)
         small_experiments(dev)
         consistency = serve_consistency(dev)
         rwkv_consistent = rwkv_consistency(dev)
@@ -1529,7 +1844,7 @@ def main() -> int:
     except Failed as e:
         return fail(str(e))
 
-    launches = {**{k: train_launches[k] for k in ("int8_quantize",
+    launches = {**{k: cli["launches"][k] for k in ("int8_quantize",
                                                   "int8_dequant_accumulate")},
                 **{k: serve_launches[k] for k in ("swa_attention",
                                                   "decode_attention")},
@@ -1546,6 +1861,10 @@ def main() -> int:
         if name.startswith("int8_"):
             extra["launches_experiment"] = {
                 e["mode"]: e["launches"][name] for e in experiments}
+            extra["launches_spec_cli_roundtrip"] = \
+                spec_cli_sweep["roundtrip_check"]["launches"][name]
+            extra["launches_sweep_workers_1"] = \
+                spec_cli_sweep["sweep_workers_1"]["launches_here"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": CU_SOURCES[name],
             "replaces": tpu, "launches": launches[name],
@@ -1553,12 +1872,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "check": CHECKS[name], **extra})
     print(json.dumps({"cohort_step": cohort}))
-    print(json.dumps({"rounds": [{"round": r.round, "perplexity": r.perplexity,
-                                  "wall_s": r.wall_s,
-                                  "graph_replays": r.graph_replays,
-                                  "graph_captures": r.graph_captures}
-                                 for r in records],
-                      "graph_counts": train_graphs}))
+    print(json.dumps({"train_cli": cli}))
+    print(json.dumps({"spec_cli_and_sweep": spec_cli_sweep}))
     print(json.dumps({"serve": {
         "arch": SERVE_ARCH, "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
         "gen": GEN, "prefill_s": res.prefill_s, "decode_s": res.decode_s,

@@ -14,13 +14,14 @@ come from the spec's `Environment` rather than module defaults.
 
 The modules of this package, ``core`` and the engine in ``federated`` are
 copies of the reference package's NumPy host code, held to their sources by
-``tests/test_torch_engine_copy.py``. The reference's ``sweep`` (serial,
-lane-batched and fault-tolerant sweeps) is not ported yet, so this package
-does not export it; ``LaneRunner`` is here.
+``tests/test_torch_engine_copy.py``. ``sweep`` runs specs serially,
+lane-batched or across worker processes (fault-tolerant on request); its
+``device=`` is where real-learner specs run.
 """
 from repro_torch.api.environment import Environment
 from repro_torch.api.experiment import Experiment, Result, run_spec
 from repro_torch.api.spec import ExperimentSpec, ModelRef
+from repro_torch.api.sweep import sweep
 from repro_torch.federated.runtime import (STRATEGIES, LaneRunner, LaneTask,
                                            RoundEvent, Strategy, get_strategy,
                                            register_strategy)
@@ -28,5 +29,5 @@ from repro_torch.federated.runtime import (STRATEGIES, LaneRunner, LaneTask,
 __all__ = [
     "Environment", "Experiment", "ExperimentSpec", "LaneRunner", "LaneTask",
     "ModelRef", "Result", "RoundEvent", "STRATEGIES", "Strategy",
-    "get_strategy", "register_strategy", "run_spec",
+    "get_strategy", "register_strategy", "run_spec", "sweep",
 ]

@@ -10,6 +10,7 @@ replays from a CUDA graph captured once per cohort size.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -98,19 +99,33 @@ class _Cohort:
             v.copy_(batches[k][:, i])
         self.mask.copy_(masks[:, i])
 
-    def capture(self, step: Callable[["_Cohort"], None]) -> None:
-        """Warm the step up on a side stream, then capture it on that
-        stream into a graph with its own memory pool. Both change the
-        buffers; the caller refills them."""
+    def capture(self, step: Callable[["_Cohort"], None],
+                side: "torch.cuda.Stream", pool) -> None:
+        """Warm the step up on the side stream, then capture it on that
+        stream into a graph whose memory comes from ``pool``. Both change
+        the buffers; the caller refills them.
+
+        Python's cyclic garbage collector is off during the capture: an
+        earlier learner that only cyclic garbage still holds (the first
+        learner of a process is held so by the frames of an import that
+        torch makes during its first step) keeps its own graphs, and a
+        collection that destroys one of them while this stream captures
+        invalidates the capture (``torch.cuda.graph`` no longer collects
+        before it captures)."""
         dev = self.total.device
-        side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             step(self)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side):
-            step(self)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=side):
+                step(self)
+        finally:
+            if collecting:
+                gc.enable()
         GRAPH_COUNTS["captures"] += 1
 
 
@@ -132,7 +147,11 @@ def make_cohort_update(loss_fn: Callable, client_lr: float,
     last step any client uses. On a CUDA device (unless ``graph`` is False)
     each step is one replay of a CUDA graph, captured at the first call for
     each cohort size and step shape; ``GRAPH_COUNTS`` counts captures and
-    replays. Elsewhere the same step runs eagerly.
+    replays. Elsewhere the same step runs eagerly. The graphs are warmed up
+    and captured on one side stream and share one memory pool: a step
+    leaves no tensor in the pool (it writes the cohort's own buffers), so
+    a replay of any graph may reuse what another's used, in any order, and
+    the pool holds one step's working memory, not one per cohort size.
     """
     grad_and_loss = torch.func.grad_and_value(lambda p, b: loss_fn(p, b)[0])
 
@@ -155,6 +174,7 @@ def make_cohort_update(loss_fn: Callable, client_lr: float,
         c.total.add_(loss)
 
     cohorts: Dict[tuple, _Cohort] = {}
+    shared: Dict[str, object] = {}          # the side stream and the pool
 
     def cohort_update(params: Batch, batches: Batch, step_mask):
         mask = np.asarray(step_mask, np.float32)
@@ -170,9 +190,12 @@ def make_cohort_update(loss_fn: Callable, client_lr: float,
             c = cohorts[key] = _Cohort(params, batches, n_clients)
         replay = graph and some.device.type == "cuda"
         if replay and c.graph is None and n_steps:
+            if not shared:
+                shared.update(side=torch.cuda.Stream(some.device),
+                              pool=torch.cuda.graph_pool_handle())
             c.start(params)
             c.load(batches, masks, 0)
-            c.capture(step)
+            c.capture(step, shared["side"], shared["pool"])
         c.start(params)
         for i in range(n_steps):
             c.load(batches, masks, i)

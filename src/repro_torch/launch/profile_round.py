@@ -22,10 +22,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.api import ExperimentSpec
 from repro_torch.configs import FederatedConfig, RunConfig, get_config
 from repro_torch.data import FederatedDataset
 from repro_torch.federated import RealLearner, client
-from repro_torch.launch import train
+from repro_torch.federated.runtime import _POPULATION, _select_cohort
 
 
 def kernel_kind(name: str) -> str:
@@ -54,7 +55,8 @@ def main() -> int:
                           char_vocab=cfg.char_vocab,
                           max_word_len=cfg.max_word_len)
     learner = RealLearner(cfg, fed, RunConfig(), ds,
-                          max_client_steps=train.MAX_CLIENT_STEPS, device=dev)
+                          max_client_steps=ExperimentSpec().max_client_steps,
+                          device=dev)
     rng = np.random.default_rng(fed.seed)
 
     def timed(fn):
@@ -65,7 +67,7 @@ def main() -> int:
         return out, time.perf_counter() - t0
 
     def one_round():
-        cohort = train._select_cohort(rng, fed.concurrency, train._POPULATION)
+        cohort = _select_cohort(rng, fed.concurrency, _POPULATION)
         ids = cohort[:fed.aggregation_goal].tolist()
         phases = {}
         batches, phases["host data (measured apart)"] = timed(

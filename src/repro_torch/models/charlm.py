@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
@@ -58,7 +59,15 @@ class CharLM:
     # ------------------------------------------------------------- word enc
     def word_embed(self, params: cm.Params, chars: torch.Tensor) -> torch.Tensor:
         """chars: (..., W) int -> (..., d_model)."""
-        x = params["char_embed"][chars.long()]              # (..., W, ce)
+        # The two lookups give the same rows; what differs is whose
+        # backward sums a row's gradients in one fixed order. On the CPU,
+        # indexing's backward adds rows with atomics across threads (two
+        # runs can differ) and the embedding's does not; on CUDA, indexing's
+        # (sort-based) is the one that gives the same bits run to run and
+        # in a CUDA graph.
+        table, ids = params["char_embed"], chars.long()
+        x = F.embedding(ids, table) if table.device.type == "cpu" \
+            else table[ids]                                 # (..., W, ce)
         W = x.shape[-2]
         feats = []
         for w, _ in self.cfg.cnn_filters:

@@ -102,6 +102,11 @@ class DecoderLM:
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
         return x @ w
 
+    def loss(self, params: cm.Params, batch):
+        raise NotImplementedError("DecoderLM.loss (training, with a "
+                                  "gradient through flash attention) is not "
+                                  "ported yet")
+
     # ----------------------------------------------------------- serve api
     def init_cache(self, B: int, cache_len: int,
                    dtype: torch.dtype = torch.bfloat16,

@@ -274,3 +274,33 @@ def test_lm_loss_matches_jax(chunk):
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), atol=1e-5)
     np.testing.assert_allclose(gw.numpy(), np.asarray(jgw), atol=1e-5)
+
+
+def test_char_embedding_gradient_is_reproducible_on_many_threads(tiny):
+    """Run to run, the gradient of the CharLM's word embedding for a
+    stacked cohort (vmapped, as the cohort step takes it) has the same bits
+    on 4 CPU threads. On the CPU the char lookup is an embedding, whose
+    backward sums each row in one fixed order; indexing's backward (the
+    CPU's lookup before) adds rows with atomics across threads, and its
+    runs differed in the last bits."""
+    model, cfg = tiny["model"], tiny["cfg"]
+    n = 6
+    params = {k: v.expand((n,) + tuple(v.shape)).clone()
+              for k, v in tiny["params"].items()}
+    gen = torch.Generator().manual_seed(0)
+    chars = torch.randint(0, cfg.char_vocab, (n, 8, 16, cfg.max_word_len),
+                          generator=gen)
+    weight = torch.randn(n, 8, 16, cfg.d_model, generator=gen)
+
+    def loss(p, c, w):
+        return (model.word_embed(p, c) * w).sum()
+    grad = torch.func.vmap(torch.func.grad(loss))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        first = grad(params, chars, weight)["char_embed"]
+        for _ in range(200):
+            assert torch.equal(grad(params, chars, weight)["char_embed"],
+                               first)
+    finally:
+        torch.set_num_threads(threads)

@@ -1,15 +1,20 @@
 """The port's engine modules are copies of the reference package's NumPy host
 code. Each copied module is held to its source here: both are parsed, the
 docstrings are removed and ``repro`` is rewritten to ``repro_torch`` in the
-reference's import statements, and then the two syntax trees must be equal
+reference's imports and module names, and then the two syntax trees must be equal
 (so a port module that imports ``repro`` differs from its source).
 
 ``DIFFERENCES`` is the one list of places where the port departs from its
-source on purpose. Run this file as a script to print those places as a
-diff of the two sources, which is all there is to read beyond the copy.
+source on purpose. Each entry names rewrites that turn those places of the
+port back into the reference's code (drop the ``device`` parameter, say);
+the rest of each module, every function body included, is compared whole.
+Run this file as a script to print what each entry rewrites as a diff,
+which is all there is to read beyond the copy.
 """
 import ast
+import copy
 import difflib
+import re
 import sys
 from pathlib import Path
 
@@ -24,26 +29,194 @@ MODULES = (
     "core/__init__.py", "core/carbon.py", "core/profiles.py",
     "core/network.py", "core/energy.py", "core/telemetry.py",
     "core/estimator.py", "core/faults.py", "core/availability.py",
-    "core/streaming.py", "core/snapshot.py",
+    "core/streaming.py", "core/snapshot.py", "core/predictor.py",
+    "core/advisor.py",
     "federated/__init__.py", "federated/events.py", "federated/runtime.py",
-    "federated/surrogate.py",
+    "federated/surrogate.py", "federated/reference.py",
     "api/environment.py", "api/spec.py", "api/experiment.py",
-    "api/__init__.py",
+    "api/sweep.py", "api/__init__.py", "api/__main__.py",
+    "checkpoint/__init__.py", "checkpoint/io.py",
+    "launch/train.py",
 )
 
-# (module, names, reason): a name is a function's qualified name, whose
-# whole definition is left out of the comparison, or a name the reference
-# imports into the module, whose import and ``__all__`` entry the port
-# leaves out.
+
+def _is_name(node, name):
+    return isinstance(node, ast.Name) and node.id == name
+
+
+def _call_of(node, name):
+    """Whether ``node`` calls ``name`` (a function or a method)."""
+    return isinstance(node, ast.Call) and (
+        _is_name(node.func, name) or
+        isinstance(node.func, ast.Attribute) and node.func.attr == name)
+
+
+class _Rewrite(ast.NodeTransformer):
+    """Visits the port's tree; ``keep(stmt)`` drops a statement where it is
+    false. A rewrite of one difference subclasses it."""
+
+    def keep(self, stmt):
+        return True
+
+    def generic_visit(self, node):
+        node = super().generic_visit(node)
+        for field in ("body", "orelse", "finalbody"):
+            body = getattr(node, field, None)
+            if isinstance(body, list) and body and \
+                    isinstance(body[0], ast.stmt):
+                setattr(node, field, [s for s in body if self.keep(s)]
+                        or [ast.Pass()])
+        return node
+
+
+class _Device(_Rewrite):
+    """Drop ``device``: the parameter, the argument, the keyword, the
+    ``self.device``/``device`` assignments, the import of
+    ``resolve_device`` and the CLIs' ``--device`` option."""
+
+    def keep(self, stmt):
+        if isinstance(stmt, ast.Assign):
+            return not any(_is_name(t, "device") or isinstance(
+                t, ast.Attribute) and t.attr == "device"
+                for t in stmt.targets)
+        if isinstance(stmt, ast.Expr) and _call_of(stmt.value,
+                                                   "add_argument"):
+            return not (stmt.value.args and isinstance(
+                stmt.value.args[0], ast.Constant) and
+                stmt.value.args[0].value == "--device")
+        if isinstance(stmt, ast.ImportFrom):
+            stmt.names = [a for a in stmt.names
+                          if a.name != "resolve_device"]
+            return bool(stmt.names)
+        return True
+
+    def visit_arguments(self, node):
+        pos = node.posonlyargs + node.args
+        if pos and pos[-1].arg == "device" and node.defaults:
+            node.args, node.defaults = node.args[:-1], node.defaults[:-1]
+        keep = [i for i, a in enumerate(node.kwonlyargs)
+                if a.arg != "device"]
+        node.kw_defaults = [node.kw_defaults[i] for i in keep]
+        node.kwonlyargs = [node.kwonlyargs[i] for i in keep]
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        node.args = [a for a in node.args if not _is_name(a, "device")]
+        node.keywords = [k for k in node.keywords if k.arg != "device"]
+        return node
+
+    def visit_Tuple(self, node):         # a worker process's args
+        self.generic_visit(node)
+        node.elts = [e for e in node.elts if not _is_name(e, "device")]
+        return node
+
+
+class _RunSpec(_Rewrite):
+    """``Experiment(spec).run()`` back to ``run_spec(spec)``, whose import
+    the port drops."""
+
+    def visit_ImportFrom(self, node):
+        if node.module == "repro_torch.api.experiment":
+            node.names.append(ast.alias("run_spec"))
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        inner = node.func.value if _call_of(node, "run") else None
+        if not node.args and _call_of(inner, "Experiment"):
+            return ast.Call(ast.Name("run_spec", ast.Load()), inner.args, [])
+        return node
+
+
+class _Spawn(_Rewrite):
+    """Drop ``_mp_context``: its definition, the ``mp_context=`` of the
+    pool, and ``_mp_context(specs, ctx)`` back to ``ctx``."""
+
+    def keep(self, stmt):
+        return not (isinstance(stmt, ast.FunctionDef)
+                    and stmt.name == "_mp_context")
+
+    def visit_Call(self, node):
+        node.keywords = [k for k in node.keywords if k.arg != "mp_context"]
+        self.generic_visit(node)
+        return node.args[1] if _call_of(node, "_mp_context") else node
+
+
+class _Drain(_Rewrite):
+    """``alive = proc.is_alive()`` read before the poll, back to
+    ``proc.is_alive()`` read after it."""
+
+    def keep(self, stmt):
+        return not (isinstance(stmt, ast.Assign) and
+                    _is_name(stmt.targets[0], "alive"))
+
+    def visit_Name(self, node):
+        if node.id == "alive" and isinstance(node.ctx, ast.Load):
+            return ast.Call(ast.Attribute(ast.Name("proc", ast.Load()),
+                                          "is_alive", ast.Load()), [], [])
+        return node
+
+
+class _Message(_Rewrite):
+    """The port's error message names its own learner."""
+
+    def visit_Constant(self, node):
+        if node.value == ("engine snapshots support learner='surrogate' "
+                          "only; the port's real learner's parameters are "
+                          "not serialized"):
+            node.value = node.value.replace("port's real learner's",
+                                            "real JAX learner's")
+        return node
+
+
+class _HostTransfer(_Rewrite):
+    """``to_host(tree)`` (each tensor to host NumPy) back to
+    ``jax.device_get(tree)``; ``import torch`` for ``import jax``."""
+
+    def keep(self, stmt):
+        if isinstance(stmt, ast.Import):
+            return stmt.names[0].name not in ("torch", "jax")
+        return not (isinstance(stmt, ast.FunctionDef)
+                    and stmt.name == "to_host")
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        if _call_of(node, "to_host"):
+            node.func = ast.Attribute(ast.Name("jax", ast.Load()),
+                                      "device_get", ast.Load())
+        return node
+
+
+# (module, rewrites, reason): the rewrites turn the port's module back into
+# its source where the reason says it departs. _HostTransfer also drops the
+# reference's ``import jax``, the one rewrite of the reference's tree.
 DIFFERENCES = (
-    ("api/experiment.py", ("Experiment.__init__", "Experiment._make_learner"),
+    ("api/experiment.py", (_Device,),
      "takes device= and builds the port's RealLearner on "
      "resolve_device(device), so a real run without a card raises"),
-    ("api/experiment.py", ("Experiment._snapshot_hook",),
+    ("api/experiment.py", (_Message,),
      "its error for a real learner names the port's learner, not JAX's"),
-    ("api/__init__.py", ("sweep",),
-     "api/sweep.py is not ported yet, so sweep is neither imported nor "
-     "exported"),
+    ("api/sweep.py", (_Device, _RunSpec),
+     "device= (default \"cuda\") travels from sweep() through the jobs and "
+     "the worker processes to Experiment(spec, device=device); _run_job "
+     "builds that Experiment in place of run_spec(spec)"),
+    ("api/sweep.py", (_Spawn,),
+     "a job with a real-learner spec runs in a worker started with "
+     "\"spawn\" (a forked child cannot use CUDA again)"),
+    ("api/sweep.py", (_Drain,),
+     "the fault-tolerant scheduler reads is_alive() before it polls the "
+     "pipe, so a worker that sends and exits between the two checks is "
+     "read, not counted as died"),
+    ("api/__main__.py", (_Device,),
+     "--device (default cuda), passed to Experiment, where a real learner "
+     "runs"),
+    ("checkpoint/io.py", (_HostTransfer,),
+     "each torch.Tensor leaf moves to host NumPy in place of "
+     "jax.device_get; a bfloat16 leaf raises"),
+    ("launch/train.py", (_Device,),
+     "--device (default cuda), passed to Experiment, where the real "
+     "learner runs"),
 )
 
 
@@ -55,7 +228,8 @@ def _rename(module):
 
 class _Normalise(ast.NodeTransformer):
     """Drop docstrings; with ``rename``, rewrite ``repro`` to
-    ``repro_torch`` in imports."""
+    ``repro_torch`` in imports and in a string that names a module of it
+    (the spec CLI's ``prog``)."""
 
     def __init__(self, rename):
         self.rename = rename
@@ -84,45 +258,11 @@ class _Normalise(ast.NodeTransformer):
                 alias.name = _rename(alias.name)
         return node
 
-
-def _defs(tree):
-    """Qualified name -> (parent body, index) of every function."""
-    out = {}
-
-    def walk(body, prefix):
-        for i, node in enumerate(body):
-            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
-                                 ast.ClassDef)):
-                name = prefix + node.name
-                if not isinstance(node, ast.ClassDef):
-                    out[name] = (body, i)
-                walk(node.body, name + ".")
-    walk(tree.body, "")
-    return out
-
-
-def _drop_import(tree, name):
-    """Remove ``name`` from the module's imports and its ``__all__``;
-    returns whether it was found in both."""
-    found = set()
-    for node in list(tree.body):
-        if isinstance(node, ast.ImportFrom):
-            kept = [a for a in node.names if (a.asname or a.name) != name]
-            if len(kept) < len(node.names):
-                found.add("import")
-                node.names = kept
-                if not kept:
-                    tree.body.remove(node)
-        elif isinstance(node, ast.Assign) and \
-                any(isinstance(t, ast.Name) and t.id == "__all__"
-                    for t in node.targets):
-            elts = node.value.elts
-            kept = [e for e in elts if not (isinstance(e, ast.Constant)
-                                             and e.value == name)]
-            if len(kept) < len(elts):
-                found.add("__all__")
-                node.value.elts = kept
-    return found == {"import", "__all__"}
+    def visit_Constant(self, node):
+        if self.rename and isinstance(node.value, str) and \
+                re.fullmatch(r"repro(\.\w+)*", node.value):
+            node.value = _rename(node.value)
+        return node
 
 
 def _trees(module):
@@ -132,26 +272,17 @@ def _trees(module):
             _Normalise(rename=False).visit(ast.parse(port)))
 
 
-def _apply_differences(module, ref, port, differences=DIFFERENCES):
-    """Blank the listed functions in both trees and drop the listed
-    imports from the reference; returns (name, reference source, port
-    source) for each name left out."""
-    shown = []
-    rdefs, pdefs = _defs(ref), _defs(port)
-    for mod, names, _ in differences:
+def _apply(module, ref, port, differences=DIFFERENCES):
+    """Apply the module's rewrites to the port's tree (and _HostTransfer's
+    import drop to the reference's); returns the port's tree."""
+    for mod, rewrites, _ in differences:
         if mod != module:
             continue
-        for name in names:
-            if name in rdefs or name in pdefs:
-                assert name in rdefs and name in pdefs, (module, name)
-                (rb, ri), (pb, pi) = rdefs[name], pdefs[name]
-                shown.append((name, ast.unparse(rb[ri]), ast.unparse(pb[pi])))
-                rb[ri] = ast.Pass()
-                pb[pi] = ast.Pass()
-            else:
-                assert _drop_import(ref, name), (module, name)
-                shown.append((name, f"import {name}", ""))
-    return shown
+        for rewrite in rewrites:
+            port = ast.fix_missing_locations(rewrite().visit(port))
+            if rewrite is _HostTransfer:
+                ref.body = [s for s in ref.body if _HostTransfer().keep(s)]
+    return port
 
 
 def _diff(a, b, name):
@@ -163,7 +294,7 @@ def _diff(a, b, name):
 @pytest.mark.parametrize("module", MODULES)
 def test_module_is_a_copy_of_the_reference(module):
     ref, port = _trees(module)
-    _apply_differences(module, ref, port)
+    port = _apply(module, ref, port)
     if ast.dump(ref) != ast.dump(port):
         pytest.fail("the port's copy departs from the reference outside "
                     "DIFFERENCES:\n"
@@ -171,34 +302,43 @@ def test_module_is_a_copy_of_the_reference(module):
 
 
 def test_each_listed_difference_is_real():
-    """Three differences, each in a copied module, and each one changes
-    what it names (a difference that no longer differs must leave the
+    """Eight differences, each in a copied module; each of its rewrites
+    changes the port's tree, and without it the module no longer equals
+    its source (a difference that no longer differs must leave the
     list)."""
-    assert len(DIFFERENCES) == 3
+    assert len(DIFFERENCES) == 8
     for entry in DIFFERENCES:
-        module, names, reason = entry
-        assert module in MODULES and names and reason
+        module, rewrites, reason = entry
+        assert module in MODULES and rewrites and reason
+        others = [e for e in DIFFERENCES if e is not entry]
         ref, port = _trees(module)
-        shown = _apply_differences(module, ref, port, [entry])
-        assert [name for name, _, _ in shown] == list(names)
-        for name, a, b in shown:
-            assert a != b, (module, name)
+        port = _apply(module, ref, port, others)
+        assert ast.dump(ref) != ast.dump(port), (module, reason)
+        for rewrite in rewrites:
+            before = ast.dump(port)
+            port = _apply(module, ref, port, [(module, (rewrite,), "")])
+            assert ast.dump(port) != before, (module, rewrite.__name__)
 
 
 def test_every_engine_module_is_checked():
-    """Every module of the port's api/ and core/ is a checked copy."""
+    """Every module of the port's api/, core/ and checkpoint/ is a checked
+    copy."""
     ported = {p.relative_to(SRC / "repro_torch").as_posix()
-              for d in ("api", "core")
+              for d in ("api", "core", "checkpoint")
               for p in (SRC / "repro_torch" / d).glob("*.py")}
     assert ported <= set(MODULES)
 
 
 if __name__ == "__main__":
-    for entry in DIFFERENCES:
-        module, _, reason = entry
+    for module, rewrites, reason in DIFFERENCES:
         ref, port = _trees(module)
-        for name, a, b in _apply_differences(module, ref, port, [entry]):
-            print(f"# {module}: {name}: {reason}")
-            print(_diff(a, b, f"{module}::{name}"))
-            print()
+        before = ast.unparse(port)
+        after = ast.unparse(_apply(module, ref, copy.deepcopy(port),
+                                   [(module, rewrites, reason)]))
+        names = ", ".join(r.__name__ for r in rewrites)
+        print(f"# {module}: {names}: {reason}")
+        print("\n".join(difflib.unified_diff(
+            after.splitlines(), before.splitlines(), f"repro/{module}",
+            f"repro_torch/{module}", lineterm="")))
+        print()
     sys.exit(0)

@@ -140,29 +140,43 @@ def test_port_learner_in_reference_experiment(mode):
     assert got["perplexity"] < bound * ppl0
 
 
-def test_train_cli_runs_on_cpu(capsys):
+def test_train_cli_runs_on_cpu(capsys, tmp_path):
+    """The train CLI (a thin CLI over the port's Experiment since the
+    reference's own CLI was copied) runs a reduced real sync run on the
+    CPU through the engine, with the int8 codec."""
+    out_json = tmp_path / "s.json"
     assert train.main(["--reduced", "--device", "cpu", "--concurrency", "3",
                        "--aggregation-goal", "2", "--rounds", "2",
                        "--seq-len", "8", "--batch-size", "4",
-                       "--compression", "int8"]) == 0
+                       "--compression", "int8", "--json",
+                       str(out_json)]) == 0
     out = capsys.readouterr().out
-    lines = [l for l in out.splitlines() if l.startswith("[train] round")]
-    assert len(lines) == 2
-    ppl = [float(l.split("perplexity ")[1].split()[0]) for l in lines]
-    assert all(np.isfinite(ppl))
+    lines = [l for l in out.splitlines()
+             if l.startswith("[train] paper-charlm sync")]
+    assert len(lines) == 1 and "rounds=2 " in lines[0]
+    ppl = float(lines[0].split("ppl=")[1].split()[0])
+    assert np.isfinite(ppl)
+    import json
+    summary = json.loads(out_json.read_text())
+    assert summary["rounds"] == 2 and summary["sessions"] > 0
+    assert np.isfinite(summary["perplexity"])
     with pytest.raises(SystemExit):
         train.main(["--help"])
-    assert "event engine" in capsys.readouterr().out
+    help_text = capsys.readouterr().out
+    assert "--device" in help_text and "--ckpt" in help_text
 
 
 def test_cohort_selection_matches_reference_engine():
-    from repro.federated.runtime import _select_cohort
+    from repro.federated.runtime import _POPULATION as ref_population
+    from repro.federated.runtime import _select_cohort as ref_select
+    from repro_torch.federated.runtime import _POPULATION, _select_cohort
+    assert _POPULATION == ref_population == 5_000_000
     for seed in (0, 7):
         a, b = np.random.default_rng(seed), np.random.default_rng(seed)
         for _ in range(3):
             np.testing.assert_array_equal(
-                train._select_cohort(a, 20, train._POPULATION),
-                _select_cohort(b, 20, 5_000_000))
+                _select_cohort(a, 20, _POPULATION),
+                ref_select(b, 20, ref_population))
 
 
 def _imports(path):
