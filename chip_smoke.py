@@ -21,7 +21,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      inputs, at the decode shape (T 1, the state updated in place), the
      reference's 4 kernel cases in f32 and bf16, ragged T 1000 and 37,
      strided views of one fused tensor with one u per panel, 3 replays of a
-     CUDA graph;
+     CUDA graph; K3's training kernels (f32): the forward with LSE (o
+     bit-equal to the forward without it) and the dQ and dK/dV backward
+     kernels against ``attention_bwd_ref`` (within 1e-4 of max(1, its
+     largest entry)) at the training shapes (48 and 8 x 64 tokens, 9/3
+     heads, 64), the serving length (8 x 1024), the forward's cases and
+     strided views; the folded launch of a 6-client cohort and the autograd
+     Function under vmap(grad) bit-equal to per-client launches;
   3b. hold the learner's cohort step (one batched local step over the
      stacked clients, replayed from a CUDA graph) at full width against the
      plain per-client step: a ragged 16-client cohort with 1 to 8 local
@@ -45,7 +51,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and at the decode shape over 32 states, one per layer (cold in L2);
      K1 over a round's table of 24 leaves eagerly and in a CUDA graph,
      beside the per-leaf loop timed the same two ways, and the host wall
-     of ``compress_roundtrip`` for one round;
+     of ``compress_roundtrip`` for one round; K3's training kernels at the
+     sync training shape (48 x 64) and the serving length (8 x 1024): the
+     forward with LSE, each backward kernel and the two together, beside
+     the plain backward, SDPA's backward through autograd (``enable_gqa``,
+     f32) and their bounds (10 D operations an attended pair for the whole
+     backward at the f32 SIMT rate, or the bytes at the HBM rate);
   5. drive the port's main paths, each with the kernels' launch counts
      reset just before and read just after:
      a. the train CLI, ``repro_torch.launch.train.main(["--spec", S,
@@ -84,11 +95,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
         while the sweep runs are printed, and what the two in-process runs
         hold on the card (graph pools, the default pool by stream, beyond
         the reserved segments);
+     f. the reference train CLI's smollm-135m example at full width
+        (134,515,008 params, f32): ``repro_torch.launch.train.main(["--arch",
+        "smollm-135m", "--mode", "async", "--concurrency", "6", "--rounds",
+        "3", "--seq-len", "64", "--compression", "int8", "--json", J,
+        "--ckpt", D])``, then ``Experiment(spec).run()`` on its spec (saved
+        with ``--save-spec``; summary and checkpoint bit-equal to the
+        CLI's), then a sync spec through ``Experiment`` (concurrency 8,
+        goal 6, batch 8); each run held as 5d's (K1/K2 from the engine's
+        record, graph replays from the clients' batch counts, one capture
+        a cohort size), with 30 launches of each K3 training kernel (the
+        forward with LSE, dQ, dK/dV) at each capture and nothing else, one
+        replay of the cohort graph under torch.profiler showing those 30
+        of each, finite perplexities, update walls and peak memory;
   6. check the outputs: finite perplexities, and on a small config one
      round on the card agrees with the same round on the CPU (plain
      versions of the kernels); the three modes of 5d at a small size give
      the CPU's summary, participation and mean staleness (perplexity
-     within rel 1e-3), and 5d's summaries are finite with 3 rounds,
+     within rel 1e-3), and so do a sync and an async run of the reduced
+     smollm-135m (wq/wk/wv rescaled: see ``small_experiments``); at full
+     width and 2 layers one smollm cohort step on the card gives the CPU's
+     delta (within 1e-4 of max(1, its largest entry)); 5d's summaries are
+     finite with 3 rounds,
      sessions and carbon; generated tokens in the vocabulary and
      finite logits; at full width prefill(t[:-1]) + decode(t[-1]) equals
      the full forward's last logits (atol 2e-3 + rtol 2e-3, with wq/wk/wv
@@ -146,6 +174,13 @@ TPU_KERNELS = {                # kernel -> the TPU function it replaces
     "swa_attention": "src/repro/kernels/swa_attention/kernel.py:78",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:55",
     "wkv": "src/repro/kernels/wkv/kernel.py:49",
+    "swa_attention_lse": "src/repro/kernels/swa_attention/kernel.py:78",
+    "swa_attention_bwd_dq": "no Pallas counterpart: the gradient of "
+                            "src/repro/models/common.py:137 flash_attention "
+                            "(jax.checkpoint recompute)",
+    "swa_attention_bwd_dkdv": "no Pallas counterpart: the gradient of "
+                              "src/repro/models/common.py:137 "
+                              "flash_attention (jax.checkpoint recompute)",
 }
 CU_SOURCES = {
     "int8_quantize": "src/repro_torch/kernels/int8_quant/csrc/int8_quant.cu",
@@ -156,6 +191,12 @@ CU_SOURCES = {
     "decode_attention":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "wkv": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
+    "swa_attention_lse":
+        "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
+    "swa_attention_bwd_dq":
+        "src/repro_torch/kernels/swa_attention/csrc/swa_attention_bwd.cu",
+    "swa_attention_bwd_dkdv":
+        "src/repro_torch/kernels/swa_attention/csrc/swa_attention_bwd.cu",
 }
 CHECKS = {                     # what phase 3 held each kernel to (passed)
     "int8_quantize": "q and scales bit-equal to the per-leaf plain version; "
@@ -179,6 +220,17 @@ CHECKS = {                     # what phase 3 held each kernel to (passed)
            "(r/k/v std 8), decode shape T 1 with the state in place, the "
            "reference's 4 cases in f32 and bf16, ragged T 1000 and 37, "
            "strided views with one u per panel, 3 replays of a CUDA graph",
+    "swa_attention_lse": "o bit-equal to the forward without LSE, lse within "
+                         "1e-5 x max(1, |ref|) (f32); the shapes of "
+                         "swa_attention_bwd_dq",
+    "swa_attention_bwd_dq": "within 1e-4 x max(1, |ref|) in f32 at "
+                            "(48, 64, 9/3, 64) and (8, 64, 9/3, 64) causal, "
+                            "(8, 1024, 9/3, 64), the forward's cases "
+                            "(windows, non-causal, ragged S, D "
+                            "16/32/64/128) and strided views; the folded "
+                            "6 x 8 launch and vmap(grad) bit-equal to "
+                            "per-client launches; bf16 raises",
+    "swa_attention_bwd_dkdv": "as swa_attention_bwd_dq, dk and dv",
 }
 # K3 cases: B, S, Hq, Hkv, D, window, causal (the reference's kernel tests,
 # non-causal, then ragged S)
@@ -194,6 +246,19 @@ DECODE_CASES = [(2, 128, 4, 2, 64, "full"), (3, 256, 8, 1, 32, "ragged"),
 WKV_CASES = [(1, 32, 16), (2, 64, 32), (3, 128, 64), (2, 96, 32)]
 WKV_RAGGED = [(2, 1000, 8, 64), (2, 37, 4, 32)]
 WKV_HEADS, WKV_D = 64, 64          # rwkv6-7b: 64 heads of 64
+# K3's training kernels: the training shapes (the sync cohort of 6 x batch 8
+# folded, one async client), then the serving length; B, S, Hq, Hkv, D,
+# window, causal
+BWD_CASES = [(6 * 8, 64, 9, 3, 64, 0, True), (8, 64, 9, 3, 64, 0, True),
+             (SERVE_BATCH, PROMPT_LEN, 9, 3, 64, 0, True)]
+BWD_TOL = 1e-4                  # times max(1, the plain version's largest)
+ATTN_TRAIN_KERNELS = ("swa_attention_lse", "swa_attention_bwd_dq",
+                      "swa_attention_bwd_dkdv")
+# phase 5f: the reference train CLI's smollm example at full width
+SMOLLM, SMOLLM_LAYERS, SMOLLM_PARAMS = "smollm-135m", 30, 134_515_008
+SMOLLM_TRAIN = ["--arch", SMOLLM, "--mode", "async", "--concurrency", "6",
+                "--rounds", str(ROUNDS), "--seq-len", "64", "--compression",
+                "int8"]
 
 
 def fail(msg: str) -> int:
@@ -669,6 +734,204 @@ def time_attention(dev, gen):
     return out
 
 
+def check_attention_bwd(dev, gen):
+    """Phase 3, K3's training kernels against their plain versions (f32):
+    the forward with LSE (o bit-equal to ``attention``'s, lse within 1e-5 of
+    max(1, its largest entry) of ``attention_fwd_ref``'s) and the dQ and
+    dK/dV kernels against ``attention_bwd_ref`` on the same q, k, v, o,
+    lse and dO (within BWD_TOL of max(1, the plain gradient's largest
+    entry)), at the training shapes, the serving length, the forward's
+    cases (windows, non-causal, ragged S, D 16/32/128) and strided views;
+    the folded cohort launch (N B) bit-equal to N launches of B; the
+    autograd Function under vmap(grad_and_value) giving a per-client loop's
+    outputs and gradients bit for bit; a bf16 backward raises. Returns the
+    max abs errors by kernel and the largest error relative to max(1,
+    |ref|) reached."""
+    import torch
+    from repro_torch.kernels.swa_attention import autograd as AG
+    from repro_torch.kernels.swa_attention import kernel as AK
+    from repro_torch.kernels.swa_attention import ref as AR
+    err = {"swa_attention_lse": 0.0, "swa_attention_bwd_dq": 0.0,
+           "swa_attention_bwd_dkdv": 0.0}
+    rel = dict(err)
+
+    def held(name, got, want, tol, what):
+        scale = max(1.0, float(want.abs().max()))
+        e = float((got - want).abs().max())
+        if not (got.dtype == want.dtype and e <= tol * scale):
+            raise Failed(f"{name} differs at {what}: max abs err {e} > "
+                         f"{tol} x {scale}")
+        err[name] = max(err[name], e)
+        rel[name] = max(rel[name], e / scale)
+
+    def one(q, k, v, do, causal, window, what):
+        o0 = AK.attention(q, k, v, causal=causal, window=window)
+        o, lse = AK.attention_fwd(q, k, v, causal=causal, window=window)
+        ro, rlse = AR.attention_fwd_ref(q, k, v, causal=causal,
+                                        window=window)
+        if not torch.equal(o, o0):
+            raise Failed(f"swa_attention with LSE: o is not bit-equal to "
+                         f"the forward without it at {what}")
+        held("swa_attention_lse", lse, rlse, 1e-5, what)
+        want = AR.attention_bwd_ref(q, k, v, ro, rlse, do, causal=causal,
+                                    window=window)
+        dq, delta = AK.attention_bwd_dq(q, k, v, ro, rlse, do, causal=causal,
+                                        window=window)
+        dk, dv = AK.attention_bwd_dkdv(q, k, v, rlse, do, delta,
+                                       causal=causal, window=window)
+        held("swa_attention_bwd_dq", dq, want[0], BWD_TOL, what)
+        held("swa_attention_bwd_dkdv", dk, want[1], BWD_TOL, what)
+        held("swa_attention_bwd_dkdv", dv, want[2], BWD_TOL, what)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    cases = BWD_CASES + ATTN_CASES + [(2, 70, 4, 2, 128, 0, False),
+                                      (1, 50, 4, 4, 16, 8, False)]
+    for B, S, hq, hkv, D, window, causal in cases:
+        one(randn(B, S, hq, D), randn(B, S, hkv, D), randn(B, S, hkv, D),
+            randn(B, S, hq, D), causal, window,
+            (B, S, hq, hkv, D, window, causal))
+    # q, k, v as strided views of one fused tensor, dO a view of a wider one
+    Hq, Hkv = 9, 3
+    qkv = randn(2, 300, Hq + 2 * Hkv, 64)
+    do = randn(2, 300, Hq + 1, 64)[:, :, :Hq]
+    one(qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:], do,
+        True, 50, "strided views")
+
+    # the folded cohort launch against one launch a client, bit for bit
+    N, B, S, D = 6, 8, 64, 64
+    q, k, v, do = randn(N * B, S, Hq, D), randn(N * B, S, Hkv, D), \
+        randn(N * B, S, Hkv, D), randn(N * B, S, Hq, D)
+    o, lse = AK.attention_fwd(q, k, v)
+    full = (o, lse, *AK.attention_bwd(q, k, v, o, lse, do))
+    for i in range(N):
+        c = slice(i * B, (i + 1) * B)
+        oi, li = AK.attention_fwd(q[c], k[c], v[c])
+        part = (oi, li, *AK.attention_bwd(q[c], k[c], v[c], o[c], lse[c],
+                                          do[c]))
+        if not all(torch.equal(a[c], b) for a, b in zip(full, part)):
+            raise Failed(f"the folded launch of {N} x {B} differs from "
+                         f"client {i}'s launch of {B}")
+    # the Function under vmap(grad_and_value), as the cohort step takes it
+    qs, ks, vs = (x.reshape(N, B, *x.shape[1:]) for x in (q, k, v))
+    w = do[:B]
+
+    def loss(p):
+        o = AG.attention(p["q"], p["k"], p["v"])
+        return (o * w).sum(), o
+
+    grad_fn = torch.func.grad_and_value(loss, has_aux=True)
+    grads, (_, outs) = torch.func.vmap(grad_fn)({"q": qs, "k": ks, "v": vs})
+    for i in range(N):
+        # (the loss's own sum may add in another order under vmap)
+        g, (_, o) = grad_fn({"q": qs[i], "k": ks[i], "v": vs[i]})
+        if not (torch.equal(o, outs[i]) and
+                all(torch.equal(g[n], grads[n][i]) for n in "qkv")):
+            raise Failed(f"vmap(grad) of the attention Function differs "
+                         f"from client {i}'s own output or gradient")
+    qb = q[:B].bfloat16()
+    try:
+        AK.attention_bwd(qb, qb[..., :Hkv, :], qb[..., :Hkv, :], qb,
+                         lse[:B], qb)
+    except NotImplementedError:
+        pass
+    else:
+        raise Failed("a bf16 attention backward ran; it is not ported")
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] K3 training kernels: {len(cases) + 1} shapes, the "
+          f"forward with LSE (o bit-equal), dQ and dK/dV within {BWD_TOL} of "
+          f"max(1, |ref|); reached, relative to max(1, |ref|): {rel}; max "
+          f"abs err {err}; the folded {N} x {B} launch and vmap(grad) "
+          f"bit-equal to per-client launches")
+    return err, rel
+
+
+def time_attention_bwd(dev, gen):
+    """Phase 4, K3's training kernels at the sync training shape (the
+    cohort of 6 folded: 48 x 64 tokens, 9/3 heads, D 64, causal), their
+    main path, and at the serving length (8 x 1024): the forward with LSE
+    against its plain version and SDPA's forward; each backward kernel, and
+    the two together, against the plain backward and SDPA's backward
+    through autograd (``enable_gqa``, f32), in turns. Bounds: 10 D
+    operations an attended pair for the whole backward (6 D for dQ: S, dP,
+    dQ; 8 D for dK/dV: S, dP, dV, dK; 4 D for the forward) at the route's
+    rate (f32 SIMT for the backward, 3xTF32 for the forward), or the bytes
+    each must read once and write once at the HBM rate, if larger."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa_attention import kernel as AK
+    from repro_torch.kernels.swa_attention import ref as AR
+    out = {}
+    for B, S, Hq, Hkv, D, _, _ in (BWD_CASES[0], BWD_CASES[2]):
+        q = torch.randn(B, S, Hq, D, generator=gen, device=dev)
+        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+        do = torch.randn(B, S, Hq, D, generator=gen, device=dev)
+        o, lse = AK.attention_fwd(q, k, v)
+        _, delta = AK.attention_bwd_dq(q, k, v, o, lse, do)
+        pairs = B * Hq * S * (S + 1) // 2
+        big, small = 4 * q.numel(), 4 * k.numel()      # bytes
+        rows = 4 * lse.numel()
+        lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(
+            lq.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        lib_do = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib_o, (lq, lk, lv), lib_do,
+                                       retain_graph=True)
+
+        lse_ms, lse_plain = in_turns(lambda: AR.attention_fwd_ref(q, k, v),
+                                     lambda: AK.attention_fwd(q, k, v), 5)
+        dq_ms, bwd_plain1 = in_turns(
+            lambda: AR.attention_bwd_ref(q, k, v, o, lse, do),
+            lambda: AK.attention_bwd_dq(q, k, v, o, lse, do), 5)
+        dkdv_ms, bwd_plain2 = in_turns(
+            lambda: AR.attention_bwd_ref(q, k, v, o, lse, do),
+            lambda: AK.attention_bwd_dkdv(q, k, v, lse, do, delta), 5)
+        both_ms = cuda_time_ms(lambda: AK.attention_bwd(q, k, v, o, lse, do),
+                               5)
+        lib_bwd = cuda_time_ms(sdpa_bwd, 5)
+        lib_fwd = cuda_time_ms(sdpa_fwd, 5)
+        plain = (bwd_plain1 + bwd_plain2) / 2
+        _, mult, rate = K3_ROUTE["float32"]
+        key = "training" if S == 64 else "serving"
+        out[key] = {
+            "shape": [B, S, Hq, Hkv, D],
+            "swa_attention_lse": dict(
+                ms=lse_ms, plain_ms=lse_plain, library_ms=lib_fwd,
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    mult * 4 * D * pairs, 2 * big + 2 * small + rows,
+                    rate)))),
+            "swa_attention_bwd_dq": dict(
+                ms=dq_ms, plain_ms=plain, library_ms=lib_bwd,
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    6 * D * pairs, 4 * big + 2 * small + 2 * rows)))),
+            "swa_attention_bwd_dkdv": dict(
+                ms=dkdv_ms, plain_ms=plain, library_ms=lib_bwd,
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    8 * D * pairs, 2 * big + 4 * small + 2 * rows)))),
+            "backward_both_kernels": dict(
+                ms=both_ms, plain_ms=plain, library_ms=lib_bwd,
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    10 * D * pairs, 4 * big + 4 * small + rows)))),
+        }
+        for name, t in out[key].items():
+            if name != "shape":
+                print(f"[chip_smoke] {name} at {key} {out[key]['shape']}: "
+                      f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
+                      f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+                      f"{t['bound_by']})")
+    return out
+
+
 # ---------------------------------------------------------------------- WKV
 def _wkv_model_scale(B, T, dev, gen):
     """Inputs at the scale the reference's init gives the model: r, k, v
@@ -1053,9 +1316,9 @@ def recorded_runs(module):
             def run(self, on_round=None, **kw):
                 if self.learner is None:
                     self.build_learner()
-                marks, calls = [], []
+                marks, calls, evals = [], [], []
                 if self.spec.learner == "real":
-                    record_calls(self.learner, calls, marks)
+                    record_calls(self.learner, calls, marks, evals)
 
                 def stamp(*_):
                     marks.append((time.perf_counter(),
@@ -1072,7 +1335,7 @@ def recorded_runs(module):
                 res = super().run(on_round=round_done, on_start=stamp, **kw)
                 runs.append({
                     "experiment": self, "result": res, "calls": calls,
-                    "marks": marks,
+                    "marks": marks, "evals": evals,
                     "launches": {k: v - launches0[k]
                                  for k, v in read_launches().items()},
                     "graphs": {k: v - graphs0[k]
@@ -1127,15 +1390,18 @@ def train_cli_path(dev, workdir: Path):
     return held
 
 
-def cli_equals_experiment(cli, experiment, params) -> None:
-    """5a's JSON summary equals 5d's sync summary, and every leaf of 5a's
-    checkpoint equals 5d's sync learner's final params, bit for bit."""
+def cli_equals_experiment(cli, experiment, params,
+                          what="5a (the train CLI) equals 5d's sync run") \
+        -> None:
+    """A train CLI run's JSON summary equals an Experiment's summary (5a's
+    and 5d's sync run), and every leaf of its checkpoint equals that
+    Experiment's learner's final params, bit for bit."""
     import numpy as np
     from repro_torch.checkpoint import load_checkpoint
     if cli["json_summary"] != experiment["summary"] or \
             cli["summary"] != experiment["summary"]:
-        raise Failed(f"the train CLI's summary {cli['json_summary']} is not "
-                     f"5d's sync summary {experiment['summary']}")
+        raise Failed(f"{what}: no, the train CLI's summary "
+                     f"{cli['json_summary']} is not {experiment['summary']}")
     tree, meta = load_checkpoint(cli["checkpoint"])
     got = tree["params"]
     if sorted(got) != sorted(params):
@@ -1144,12 +1410,12 @@ def cli_equals_experiment(cli, experiment, params) -> None:
               if not (got[k].dtype == np.float32 and
                       np.array_equal(got[k], v.cpu().numpy()))]
     if differ or meta.get("rounds") != ROUNDS:
-        raise Failed(f"checkpoint leaves {differ} differ from 5d's sync "
-                     f"params (meta {meta})")
-    print(f"[chip_smoke] 5a (the train CLI) equals 5d's sync run bit for "
-          f"bit: summary, JSON and the {len(params)} checkpoint leaves; "
-          f"update walls 5a {[round(w, 4) for w in cli['round_walls_s']]} "
-          f"s, 5d {[round(w, 4) for w in experiment['round_walls_s']]} s")
+        raise Failed(f"{what}: no, checkpoint leaves {differ} differ from "
+                     f"the final params (meta {meta})")
+    print(f"[chip_smoke] {what} bit for bit: summary, JSON and the "
+          f"{len(params)} checkpoint leaves; update walls "
+          f"{[round(w, 4) for w in cli['round_walls_s']]} s (CLI), "
+          f"{[round(w, 4) for w in experiment['round_walls_s']]} s")
 
 
 def serve_path(dev):
@@ -1165,7 +1431,8 @@ def serve_path(dev):
     launches = read_launches()
     print(f"[chip_smoke] launches on the serve path: {launches}")
     want = {"swa_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * GEN, "wkv": 0}
+            "decode_attention": cfg.num_layers * GEN, "wkv": 0,
+            **{k: 0 for k in ATTN_TRAIN_KERNELS}}
     check_served(res, cfg, launches, want)
     return res, launches
 
@@ -1205,7 +1472,7 @@ def rwkv_serve_path(dev):
     print(f"[chip_smoke] launches on the rwkv serve path: {launches}; "
           f"serve.run took {run_s:.1f} s, the init included")
     want = {"wkv": cfg.num_layers * (1 + GEN), "swa_attention": 0,
-            "decode_attention": 0}
+            "decode_attention": 0, **{k: 0 for k in ATTN_TRAIN_KERNELS}}
     check_served(res, cfg, launches, want)
     return res, launches, run_s
 
@@ -1241,12 +1508,14 @@ def codec_launches_from_log(result, mode) -> int:
     return log.completed_sessions()
 
 
-def record_calls(learner, calls, marks) -> None:
+def record_calls(learner, calls, marks, evals) -> None:
     """Wrap the learner's two training calls so that each records the round
-    it falls in (the count of ``marks`` so far) and its client ids. The
-    wrappers reach the learner through a weak reference and its class's
-    functions, so they put it in no reference cycle: a dropped learner
-    (and its graphs) is freed at once, not by a later collection."""
+    it falls in (the count of ``marks`` so far) and its client ids, and
+    its ``eval_perplexity`` so that each call appends its value to
+    ``evals``. The wrappers reach the learner through a weak reference and
+    its class's functions, so they put it in no reference cycle: a dropped
+    learner (and its graphs) is freed at once, not by a later
+    collection."""
     import weakref
     ref = weakref.ref(learner)
     for name in ("client_deltas", "client_delta"):
@@ -1255,6 +1524,11 @@ def record_calls(learner, calls, marks) -> None:
             calls.append((len(marks), [ids] if _one else list(ids)))
             return _call(ref(), ids, *args, **kw)
         setattr(learner, name, spy)
+
+    def spy_eval(_call=type(learner).eval_perplexity):
+        evals.append(_call(ref()))
+        return evals[-1]
+    learner.eval_perplexity = spy_eval
 
 
 def experiment_path(dev, mode):
@@ -1271,8 +1545,8 @@ def experiment_path(dev, mode):
     learner = exp.build_learner()
     if learner.device != dev:
         raise Failed(f"the learner runs on {learner.device}, not {dev}")
-    marks, calls = [], []
-    record_calls(learner, calls, marks)
+    marks, calls, evals = [], [], []
+    record_calls(learner, calls, marks, evals)
 
     def mark(_):
         marks.append((time.perf_counter(), client.GRAPH_COUNTS["replays"],
@@ -1282,18 +1556,33 @@ def experiment_path(dev, mode):
     client.reset_graph_counts()
     result = exp.run(on_start=mark, on_round=mark)
     rec = {"experiment": exp, "result": result, "calls": calls,
-           "marks": marks, "launches": read_launches(),
+           "marks": marks, "evals": evals, "launches": read_launches(),
            "graphs": dict(client.GRAPH_COUNTS)}
     return held_run(mode, rec), exp.learner.params
+
+
+def attention_launches(layers, captures, evals):
+    """The K3 launches a real run of a model with ``layers`` attention
+    layers makes (0 for the CharLM): the forward with LSE and each backward
+    kernel once a layer in each capture's eager warm-up and once in the
+    capture (a replay makes no host call), the forward alone once a layer
+    in each eval; no K4 or K5."""
+    return {"swa_attention": layers * evals,
+            "swa_attention_lse": 2 * layers * captures,
+            "swa_attention_bwd_dq": 2 * layers * captures,
+            "swa_attention_bwd_dkdv": 2 * layers * captures,
+            "decode_attention": 0, "wkv": 0}
 
 
 def held_run(mode, rec):
     """Holds one full-width run (a record of ``recorded_runs`` or of
     ``experiment_path``): its K1/K2 launches equal what the engine's
-    record implies and no other kernel ran; its summary is finite with
-    ROUNDS rounds, sessions and carbon; each learner call made as many
-    graph replays as its longest client has local steps, and one capture
-    ran for each cohort size. Returns what it printed."""
+    record implies and the attention kernels' what its captures and evals
+    imply (``attention_launches``); its summary is finite with ROUNDS
+    rounds, sessions and carbon, and so is every perplexity it evaluated;
+    each learner call made as many graph replays as its longest client has
+    local steps, and one capture ran for each cohort size. Returns what it
+    printed."""
     result, calls, marks = rec["result"], rec["calls"], rec["marks"]
     learner, launches, graphs = rec["experiment"].learner, rec["launches"], \
         rec["graphs"]
@@ -1302,9 +1591,17 @@ def held_run(mode, rec):
         if launches[name] != want:
             raise Failed(f"{mode}: expected {want} {name} launches from the "
                          f"engine's record, got {launches[name]}")
-    for name in ("swa_attention", "decode_attention", "wkv"):
-        if launches[name]:
-            raise Failed(f"{mode}: {name} ran on the experiment path")
+    cfg = rec["experiment"].model_config
+    want_attn = attention_launches(
+        cfg.num_layers if cfg.family == "dense" else 0, graphs["captures"],
+        len(rec["evals"]))
+    got_attn = {k: launches[k] for k in want_attn}
+    if got_attn != want_attn:
+        raise Failed(f"{mode} ({cfg.name}): attention launches {got_attn}, "
+                     f"expected {want_attn} from {graphs['captures']} "
+                     f"captures and {len(rec['evals'])} evals")
+    if not all(math.isfinite(p) for p in rec["evals"]):
+        raise Failed(f"{mode} ({cfg.name}): perplexities {rec['evals']}")
     summary = result.summary()
     bad = [k for k, v in summary.items() if not math.isfinite(v)]
     if bad or summary["rounds"] != ROUNDS or summary["sessions"] <= 0 or \
@@ -1334,7 +1631,7 @@ def held_run(mode, rec):
            "round_walls_s": walls, "graph_replays_by_update": replays,
            "graph_captures_by_update": captures,
            "learner_calls": len(calls), "launches": launches,
-           "launches_from_log": want,
+           "launches_from_log": want, "perplexities": rec["evals"],
            "participation": result.log.participation(),
            "mean_staleness": result.log.mean_staleness(),
            "launches_per_client": None if mode == "sync" else
@@ -1541,22 +1838,208 @@ def spec_cli_and_sweep_path(dev, workdir: Path, experiments):
     return out
 
 
+def captured_graphs():
+    """A context in which every ``torch.cuda.graph`` capture (the cohort
+    step's, ``federated/client.py``) records the kernel launches made
+    while it captured and the graph it made. Yields the list of
+    (launches, CUDAGraph)."""
+    import contextlib
+    import torch
+
+    @contextlib.contextmanager
+    def swapped():
+        base, records = torch.cuda.graph, []
+
+        class Recorded(base):
+            def __enter__(self):
+                self._launches0 = read_launches()
+                return super().__enter__()
+
+            def __exit__(self, *exc):
+                out = super().__exit__(*exc)
+                after = read_launches()
+                records.append(({k: v - self._launches0[k]
+                                 for k, v in after.items()},
+                                self.cuda_graph))
+                return out
+
+        torch.cuda.graph = Recorded
+        try:
+            yield records
+        finally:
+            torch.cuda.graph = base
+    return swapped()
+
+
+def replay_profiled(graph):
+    """One replay of ``graph`` under torch.profiler: the count of its
+    device events by K3 kernel (forward, dQ, dK/dV) and all its events."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"swa_attention_lse": sum("swa_attention_kernel" in n
+                                     for n in names),
+            "swa_attention_bwd_dq": sum("swa_attention_bwd_dq_kernel" in n
+                                        for n in names),
+            "swa_attention_bwd_dkdv": sum("swa_attention_bwd_dkdv_kernel" in n
+                                          for n in names),
+            "device_events": len(names)}
+
+
+def held_smollm_run(mode, rec, graphs, dev, peak):
+    """``held_run`` for a smollm-135m run, and: the run is at full width;
+    each capture launched each K3 training kernel once a layer and nothing
+    else; one replay of its last graph under torch.profiler shows each of
+    those kernels once a layer. Returns what it printed."""
+    cfg = rec["experiment"].model_config
+    if cfg.param_count() != SMOLLM_PARAMS or cfg.num_layers != SMOLLM_LAYERS:
+        raise Failed(f"{mode}: the smollm run is not at full width "
+                     f"({cfg.param_count()} params)")
+    held = held_run(mode, rec)
+    want = {k: SMOLLM_LAYERS if k in ATTN_TRAIN_KERNELS else 0
+            for k in read_launches()}
+    per_capture = [launches for launches, _ in graphs]
+    if len(graphs) != rec["graphs"]["captures"] or \
+            any(c != want for c in per_capture):
+        raise Failed(f"{mode}: launches at each capture {per_capture}, "
+                     f"expected {len(graphs) and want} at each of "
+                     f"{rec['graphs']['captures']}")
+    seen = replay_profiled(graphs[-1][1])
+    if any(seen[k] != SMOLLM_LAYERS for k in ATTN_TRAIN_KERNELS):
+        raise Failed(f"{mode}: one replay of the cohort graph under "
+                     f"torch.profiler shows {seen}, not {SMOLLM_LAYERS} of "
+                     f"each K3 training kernel")
+    held.update(launches_per_capture=per_capture[0],
+                replay_under_profiler=seen, peak_memory_bytes=peak,
+                params=cfg.param_count())
+    print(f"[chip_smoke] smollm {mode}: each of {len(graphs)} captures "
+          f"launched {SMOLLM_LAYERS} x (K3 with LSE, dQ, dK/dV); one replay "
+          f"under torch.profiler: {seen}; perplexities "
+          f"{[round(p, 4) for p in rec['evals']]}; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    return held
+
+
+def smollm_train_path(dev, workdir: Path):
+    """Phase 5f: the reference train CLI's smollm example at full width
+    (``--arch smollm-135m --mode async --concurrency 6``, 3 rounds, seq_len
+    64, int8): ``repro_torch.launch.train.main`` with ``--json`` and
+    ``--ckpt``; ``Experiment(spec).run()`` on the same spec (saved with
+    ``--save-spec``), whose summary must equal the CLI's and whose final
+    params its checkpoint, bit for bit; then a sync spec through
+    ``Experiment`` (concurrency 8, goal 6, batch 8, the same settings).
+    Each run is held by ``held_smollm_run``."""
+    import gc
+    import torch
+    from repro_torch.api import Experiment, ExperimentSpec, ModelRef
+    from repro_torch.federated import client
+    from repro_torch.launch import train
+    spec_path = workdir / "smollm_async.json"
+    if train.main(SMOLLM_TRAIN + ["--save-spec", str(spec_path)]) != 0:
+        raise Failed("the train CLI did not save the smollm spec")
+
+    def run(fn):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with captured_graphs() as graphs:
+            res = fn()
+        return res, graphs, read_launches(), \
+            torch.cuda.max_memory_allocated(dev)
+
+    j, ckpt = workdir / "smollm_train.json", workdir / "smollm_ckpt"
+
+    def cli():
+        with recorded_runs(train) as runs:
+            rc = train.main(SMOLLM_TRAIN + ["--json", str(j), "--ckpt",
+                                            str(ckpt), "--device", str(dev)])
+        if rc != 0 or len(runs) != 1:
+            raise Failed(f"the train CLI returned {rc} after {len(runs)} "
+                         f"runs")
+        return runs[0]
+    rec, graphs, launches, peak = run(cli)
+    # the CLI evaluates the initial perplexity before its run
+    outside = {k: v - rec["launches"][k] for k, v in launches.items()}
+    if outside != {k: SMOLLM_LAYERS if k == "swa_attention" else 0
+                   for k in launches}:
+        raise Failed(f"train CLI (smollm): launches outside its run "
+                     f"{outside}")
+    cli_out = held_smollm_run("async", rec, graphs, dev, peak)
+    cli_out.update(json_summary=json.loads(j.read_text()),
+                   checkpoint=str(ckpt), launches_with_initial_eval=launches)
+    del rec, graphs
+    gc.collect()
+
+    def experiment(spec):
+        def go():
+            exp = Experiment(spec, device=dev)
+            marks, calls, evals = [], [], []
+            record_calls(exp.build_learner(), calls, marks, evals)
+
+            def mark(_):
+                marks.append((time.perf_counter(),
+                              client.GRAPH_COUNTS["replays"],
+                              client.GRAPH_COUNTS["captures"]))
+            client.reset_graph_counts()
+            result = exp.run(on_start=mark, on_round=mark)
+            return {"experiment": exp, "result": result, "calls": calls,
+                    "marks": marks, "evals": evals,
+                    "launches": read_launches(),
+                    "graphs": dict(client.GRAPH_COUNTS)}
+        return run(go)
+
+    rec, graphs, _, peak = experiment(ExperimentSpec.load(str(spec_path)))
+    exp_async = held_smollm_run("async", rec, graphs, dev, peak)
+    cli_equals_experiment(cli_out, exp_async, rec["experiment"].learner.params,
+                          "5f: the train CLI's smollm example equals "
+                          "Experiment(spec).run() on its spec")
+    del rec, graphs
+    gc.collect()
+    sync = experiment_spec("sync", ModelRef(SMOLLM), 64, concurrency=8,
+                           goal=6, batch=8)
+    rec, graphs, _, peak = experiment(sync)
+    exp_sync = held_smollm_run("sync", rec, graphs, dev, peak)
+    del rec, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_cli": cli_out, "experiment_async": exp_async,
+            "experiment_sync": exp_sync}
+
+
 # ------------------------------------------------------------------ outputs
-def small_experiments(dev):
-    """The three modes of 5d at a small size (the train CLI's
+def rescale_qkv(params) -> None:
+    """wq, wk and wv of a transformer's params, in place, from the
+    reference init's 1/sqrt(heads) to 1/sqrt(d_model) (see
+    ``serve_consistency``)."""
+    for w in ("wq", "wk", "wv"):
+        t = params[f"blocks/{w}"]
+        t *= math.sqrt(t.shape[-2] / t.shape[1])
+
+
+def small_experiments(dev, arch="paper-charlm", modes=MODES):
+    """The modes of 5d (5f) at a small size (the train CLI's
     ``reduced_model_ref``, seq_len 16), on the card and on the CPU from the
     same weights: equal summaries but for the perplexity (rel 1e-3, as in
-    small_round), equal participation and mean staleness."""
+    small_round), equal participation and mean staleness. A transformer
+    starts from wq/wk/wv rescaled (``rescale_qkv``): under the reference's
+    init the reduced smollm is chaotic in f32 (one f32 rounding of the init
+    moves the JAX learner's own perplexity by 6.6% after 3 sync rounds,
+    ``tests/test_torch_train_transformer.py``)."""
     from repro_torch.api import Experiment
     from repro_torch.federated import RealLearner
     from repro_torch.launch import train
     from repro_torch.weights import params_to_numpy
-    ref = train.reduced_model_ref("paper-charlm")
+    ref = train.reduced_model_ref(arch)
     small = ref.resolve()
-    for mode in MODES:
+    for mode in modes:
         spec = experiment_spec(mode, ref, 16, concurrency=8, goal=6, batch=8)
         cpu_exp = Experiment(spec, device="cpu")
         cpu_learner = cpu_exp.build_learner()
+        if small.family == "dense":
+            rescale_qkv(cpu_learner.params)     # the history holds the same
         card_learner = RealLearner(
             small, spec.federated, spec.run, cpu_learner.dataset,
             max_client_steps=spec.max_client_steps, device=dev,
@@ -1575,9 +2058,48 @@ def small_experiments(dev):
             if a != b:
                 raise Failed(f"small {mode} experiment: {what} on the card "
                              f"{a} vs CPU {b}")
-        print(f"[chip_smoke] small {mode} experiment: card equals the CPU; "
+        print(f"[chip_smoke] small {arch} {mode} experiment: card equals "
+              f"the CPU; "
               f"perplexity card {got['perplexity']:.6f}, CPU "
               f"{want['perplexity']:.6f}")
+
+
+def smollm_step_against_cpu(dev):
+    """smollm-135m at full width and 2 layers, wq/wk/wv rescaled
+    (``rescale_qkv``): one local step of a cohort of 2 clients (batch 8,
+    seq_len 64, the learner's cohort step, replayed from a CUDA graph on
+    the card) gives the CPU's delta within 1e-4 x max(1, |CPU delta|) in
+    each leaf."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import FederatedDataset
+    from repro_torch.federated import client
+    from repro_torch.federated.client import stack_batches, to_device
+    from repro_torch.models import get_model
+    cfg = dataclasses.replace(get_config(SMOLLM), num_layers=2)
+    model = get_model(cfg)
+    params, _ = model.init(torch.Generator().manual_seed(SEED))
+    rescale_qkv(params)
+    ds = FederatedDataset(vocab_size=cfg.vocab_size, seq_len=64)
+    stacked = [stack_batches(ds.client_batches(c, 8), 1) for c in (0, 1)]
+    batches = {k: np.stack([b[k] for b, _ in stacked]) for k in stacked[0][0]}
+    masks = np.stack([m for _, m in stacked])
+    want = client.make_cohort_update(model.loss, 0.3)(
+        params, to_device(batches, "cpu"), masks)[0]
+    got = client.make_cohort_update(model.loss, 0.3)(
+        {k: v.to(dev) for k, v in params.items()}, to_device(batches, dev),
+        masks)[0]
+    rel = {k: float((got[k].cpu() - w).abs().max())
+           / max(1.0, float(w.abs().max())) for k, w in want.items()}
+    print(f"[chip_smoke] smollm-135m full width, 2 layers: one cohort step "
+          f"on the card against the CPU, max abs err / max(1, |delta|) by "
+          f"leaf {rel}")
+    if not all(e <= 1e-4 for e in rel.values()):
+        raise Failed(f"smollm cohort step: card differs from the CPU by "
+                     f"{rel}")
+    return rel
 
 
 def small_round(dev):
@@ -1637,9 +2159,7 @@ def serve_consistency(dev):
     out = {}
     for init in ("reference", "rescaled"):
         if init == "rescaled":
-            for w in ("wq", "wk", "wv"):
-                t = params[f"blocks/{w}"]
-                t *= math.sqrt(t.shape[-2] / t.shape[1])
+            rescale_qkv(params)
         with torch.no_grad():
             e = model._embed(params, toks)
             full = model.logits(params, model._stack(params, e)[:, -1:])[:, 0]
@@ -1791,6 +2311,7 @@ def main() -> int:
             err = check_int8(dev, gen, leaf_shapes)
             err.update(check_attention(dev, gen))
             err.update(check_wkv(dev, gen))
+            bwd_err, bwd_rel = check_attention_bwd(dev, gen)
             phase("3b. the cohort step against the looped client step")
             cohort = check_cohort(dev)
 
@@ -1798,6 +2319,9 @@ def main() -> int:
         timing = time_int8(dev, gen, leaf_shapes)
         timing.update(time_attention(dev, gen))
         timing.update(time_wkv(dev, gen))
+        from repro_torch.kernels.swa_attention import kernel as AK
+        if hasattr(AK, "attention_bwd"):        # a port from PR 20 on
+            timing["attention_training"] = time_attention_bwd(dev, gen)
         if args.time_only:
             print(json.dumps({"src": str(src), "card": card,
                               "timing": timing}))
@@ -1833,10 +2357,15 @@ def main() -> int:
         phase("5e. main path: the spec CLI (repro_torch.api) and sweep at "
               "full width")
         spec_cli_sweep = spec_cli_and_sweep_path(dev, workdir, experiments)
+        phase("5f. main path: the train CLI's smollm-135m example at full "
+              "width, then Experiment in async and sync mode")
+        smollm = smollm_train_path(dev, workdir)
 
         phase("6. outputs")
         small_round(dev)
         small_experiments(dev)
+        small_experiments(dev, SMOLLM, ("sync", "async"))
+        smollm_step = smollm_step_against_cpu(dev)
         consistency = serve_consistency(dev)
         rwkv_consistent = rwkv_consistency(dev)
         small_serve(dev, SERVE_ARCH)
@@ -1851,6 +2380,8 @@ def main() -> int:
                 "wkv": rwkv_launches["wkv"]}
     kernels = []
     for name, tpu in TPU_KERNELS.items():
+        if name in ATTN_TRAIN_KERNELS:
+            continue                    # below, from 5f and their timing
         t = timing[name]
         extra = {k: v for k, v in t.items()
                  if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1871,6 +2402,27 @@ def main() -> int:
             "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "check": CHECKS[name], **extra})
+    train_timing = timing["attention_training"]
+    for name in ATTN_TRAIN_KERNELS:
+        t = train_timing["training"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CU_SOURCES[name],
+            "replaces": TPU_KERNELS[name],
+            "launches": smollm["train_cli"]["launches"][name],
+            "max_abs_err": bwd_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "check": CHECKS[name], "max_rel_err": bwd_rel[name],
+            "shape": train_timing["training"]["shape"],
+            "serving_length": train_timing["serving"][name],
+            "launches_per_capture":
+                smollm["train_cli"]["launches_per_capture"][name],
+            "launches_experiment": {
+                k: smollm[k]["launches"][name]
+                for k in ("experiment_async", "experiment_sync")}})
+    print(json.dumps({"attention_training_timing": train_timing}))
+    print(json.dumps({"smollm_training": smollm,
+                      "smollm_step_card_vs_cpu": smollm_step}))
     print(json.dumps({"cohort_step": cohort}))
     print(json.dumps({"train_cli": cli}))
     print(json.dumps({"spec_cli_and_sweep": spec_cli_sweep}))

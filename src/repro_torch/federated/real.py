@@ -1,4 +1,7 @@
-"""The port's real learner: federated training of the CharLM in PyTorch.
+"""The port's real learner: federated training of any model the port can
+train in PyTorch (``model.loss``): the paper's CharLM and the dense
+transformers (smollm-135m, its attention gradient from K3's backward
+kernels); RWKV6's loss is not ported yet and raises.
 
 It speaks the reference engine's learner protocol (``real``, ``version``,
 ``client_deltas``, ``client_delta``, ``apply(..., staleness=)``,

@@ -56,6 +56,13 @@
 // guards it; a row with no valid key at all gives 0. Build WITHOUT
 // --use_fast_math.
 //
+// Training also asks for each row's natural log-sum-exp of its scaled
+// scores, lse = (m + log2 l) ln 2 from the running max m and sum l in log2
+// units (-inf for a row with no key), written to an f32 (B, Hq, S) buffer
+// when the lse pointer is not null; o is computed the same way either way.
+// The backward kernels (swa_attention_bwd.cu) recompute the probabilities
+// from it.
+//
 // The entry point launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() (0 on success).
 
@@ -70,6 +77,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;          // query rows per block
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T, int D>
 struct Cfg {
@@ -267,7 +275,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, (Cfg<T, D>::kMinBlocks))
 swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S, int Hq,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int S, int Hq,
                      int Hkv, long long qsb, long long qss, long long qsh,
                      long long ksb, long long kss, long long ksh,
                      long long vsb, long long vss, long long vsh, int causal,
@@ -392,6 +401,7 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float den = l[rr];
     den += __shfl_xor_sync(0xffffffffu, den, 1);
     den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const float lsum = den;
     den = fmaxf(den, 1e-30f);
     if (row[rr] < S) {
       T* orow = o + ((static_cast<long long>(b) * S + row[rr]) * Hq + h) * D;
@@ -399,14 +409,17 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < D / 8; ++n)
         store2(orow + 8 * n + 2 * t, acc[n][2 * rr] / den,
                acc[n][2 * rr + 1] / den);
+      if (lse != nullptr && t == 0)      // -inf + log2(0) for a keyless row
+        lse[(static_cast<long long>(b) * Hq + h) * S + row[rr]] =
+            (m[rr] + log2f(lsum)) * kLn2;
     }
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Hq, int Hkv, const long long* st, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Hq, int Hkv, const long long* st, int causal,
+           int window, float scale, cudaStream_t stream) {
   constexpr int smem = Cfg<T, D>::kSmem;
   static bool configured = false;
   if (!configured) {                   // above 48 KB only when asked for
@@ -419,20 +432,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
   swa_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Hq, Hkv, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Hq, Hkv, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int Hq, int Hkv, const long long* st, int causal,
-             int window, float scale, cudaStream_t stream) {
+             float* lse, int B, int S, int Hq, int Hkv, const long long* st,
+             int causal, int window, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, Hq, Hkv, st, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, Hq, Hkv, st, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, Hq, Hkv, st, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, Hq, Hkv, st, causal, window, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, Hq, Hkv, st, causal, window, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, Hq, Hkv, st, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, Hq, Hkv, st, causal, window, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, Hq, Hkv, st, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -440,19 +454,21 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // strides: 9 element strides (b, s, h) of q, then of k, then of v.
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16. lse: null, or an f32 (B, Hq, S) buffer.
 extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
-                                 void* o, int B, int S, int Hq, int Hkv, int D,
-                                 int dtype, const long long* strides,
+                                 void* o, void* lse, int B, int S, int Hq,
+                                 int Hkv, int D, int dtype,
+                                 const long long* strides,
                                  int causal, int window, float scale,
                                  void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, S, Hq, Hkv, strides, causal, window, scale, st);
+    return launch_d<float>(D, q, k, v, o, static_cast<float*>(lse), B, S, Hq, Hkv,
+                           strides, causal, window, scale, st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, S, Hq, Hkv, strides, causal, window,
-                                   scale, st);
+    return launch_d<__nv_bfloat16>(D, q, k, v, o, static_cast<float*>(lse), B, S, Hq,
+                                   Hkv, strides, causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

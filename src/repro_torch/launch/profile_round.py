@@ -1,11 +1,14 @@
 """Where the time of one full-width sync round goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_round
+    PYTHONPATH=src python -m repro_torch.launch.profile_round \
+        --arch smollm-135m --concurrency 8 --aggregation-goal 6 --batch-size 8
 
-Runs the round of ``chip_smoke.py``'s main path (paper-charlm at full
-width, concurrency 20, goal 16, seq_len 64, client batch 16, 8 client
-steps, int8 uplink), whose clients train as one batched local step a
-step, replayed from a CUDA graph: one warm-up round, then one round timed
+Runs a sync round at full width, by default the round of ``chip_smoke.py``'s
+CharLM path (paper-charlm, concurrency 20, goal 16, seq_len 64, client
+batch 16, 8 client steps, int8 uplink; the second line is its smollm-135m
+sync path), whose clients train as one batched local step a step,
+replayed from a CUDA graph: one warm-up round, then one round timed
 by phase with the device synchronised at each phase's end, with its graph
 replays and peak device memory, then one round under ``torch.profiler``,
 whose device events give the kernel time by kind and the device's busy
@@ -14,6 +17,7 @@ device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from collections import defaultdict
@@ -33,6 +37,10 @@ def kernel_kind(name: str) -> str:
     n = name.lower()
     if "int8_" in n:
         return "int8 codec (K1/K2)"
+    if "swa_attention_bwd" in n:
+        return "attention backward (K3 bwd)"
+    if "swa_attention" in n:
+        return "flash attention (K3)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "cublas", "sm90_",
                             "splitk", "gemv")):
         return "matmul (cuBLAS)"
@@ -43,13 +51,21 @@ def kernel_kind(name: str) -> str:
     return "elementwise and other"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--arch", default="paper-charlm")
+    p.add_argument("--concurrency", type=int, default=20)
+    p.add_argument("--aggregation-goal", type=int, default=16)
+    p.add_argument("--batch-size", type=int, default=16)
+    args = p.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("paper-charlm")
-    fed = FederatedConfig(mode="sync", concurrency=20, aggregation_goal=16,
-                          client_lr=0.3, server_lr=0.02, client_batch_size=16,
+    cfg = get_config(args.arch)
+    fed = FederatedConfig(mode="sync", concurrency=args.concurrency,
+                          aggregation_goal=args.aggregation_goal,
+                          client_lr=0.3, server_lr=0.02,
+                          client_batch_size=args.batch_size,
                           compression="int8", seed=0)
     ds = FederatedDataset(vocab_size=cfg.vocab_size, seq_len=64,
                           char_vocab=cfg.char_vocab,
@@ -103,6 +119,9 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     result = {
         "device": torch.cuda.get_device_name(dev),
+        "arch": cfg.name, "params": cfg.param_count(),
+        "cohort": fed.aggregation_goal, "client_batch": fed.client_batch_size,
+        "seq_len": 64,
         "round_phases_s": phases,
         "round_wall_s": sum(v for k, v in phases.items()
                             if k != "host data (measured apart)"),

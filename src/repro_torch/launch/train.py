@@ -8,14 +8,18 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode async \\
       --concurrency 20 --aggregation-goal 16 --rounds 3 --seq-len 64 \\
       --batch-size 16 --compression int8 --ckpt ck      # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --reduced --mode async --concurrency 6 --rounds 20 --ckpt ck \\
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --spec exp.json   # replay one
 
 ``--device`` (default ``cuda``) is where the real learner runs; without a
 card it raises unless ``--device cpu``. ``--surrogate`` runs need no
-device. The real learner trains the CharLM (``paper-charlm``); the other
-families' ``loss`` is not ported yet and raises. ``--ckpt`` writes the
-learner's final params through ``repro_torch.checkpoint``, in the
-reference package's format.
+device. The real learner trains the CharLM (``paper-charlm``) and the
+dense transformers (``smollm-135m``; on the card at full width without
+``--reduced``); RWKV6's ``loss`` is not ported yet and raises. ``--ckpt``
+writes the learner's final params through ``repro_torch.checkpoint``, in
+the reference package's format.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Shared layer library of the port: the part of the reference's
 ``models/common.py`` that the char-CNN-LSTM, the dense transformer and
 RWKV6 need. Attention goes through the hand-written kernels' ``ops`` (K3
-for prefill, K4 for decode), which take their plain versions on CPU
-tensors.
+for prefill and training, with its backward kernels for the gradient; K4
+for decode), which take their plain versions on CPU tensors.
 
 Params are FLAT dicts ``{"path/to/weight": tensor}`` with the reference's
 keys, plus a parallel dict of logical axes built at init time.
@@ -16,6 +16,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import ops as _decode_ops
+from repro_torch.kernels.swa_attention import autograd as _attn_grad
 from repro_torch.kernels.swa_attention import ops as _attn_ops
 
 Params = Dict[str, torch.Tensor]
@@ -176,7 +177,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B,S,Hq,D); k/v: (B,S,Hkv,D) -> (B,S,Hq,D). Online-softmax
     attention, causal or sliding-window (window > 0) or non-causal; the
-    kernel picks its own tiles and takes any S."""
+    kernel picks its own tiles and takes any S. When a gradient is being
+    taken (grad mode on and an input that requires it, as under
+    ``torch.func.grad``), the forward also saves each row's log-sum-exp and
+    the gradient comes from the backward kernels (``swa_attention/
+    autograd.py``); otherwise (serving, eval under ``torch.no_grad()``) it
+    is the forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _attn_grad.attention(q, k, v, causal=causal, window=window)
     return _attn_ops.attention(q, k, v, causal=causal, window=window)
 
 

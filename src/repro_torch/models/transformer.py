@@ -1,13 +1,14 @@
 """Decoder-only transformer of the dense family (smollm-135m, ...), in
 PyTorch: pre-norm RMSNorm blocks, RoPE GQA attention (full or
 sliding-window) and a SwiGLU FFN, with the reference's flat param keys and
-shapes (per-layer params stacked on a leading layers axis). Prefill attention
-runs through K3 and decode attention through K4 (``models/common.py``); the
-layer stack is a Python loop over the stacked params.
+shapes (per-layer params stacked on a leading layers axis). Prefill and
+training attention run through K3 (the training loss's gradient through its
+backward kernels) and decode attention through K4 (``models/common.py``);
+the layer stack is a Python loop over the stacked params.
 
-Not ported yet: the MoE block, the VLM frontend, the int8 KV cache
-(``kv_quant``) and the ``flash_decode`` mesh branch (which on one device
-reduces to the plain decode path), and the training loss.
+Not ported yet: the MoE block (and with it the loss's router aux term), the
+VLM frontend, the int8 KV cache (``kv_quant``) and the ``flash_decode``
+mesh branch (which on one device reduces to the plain decode path).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.models import common as cm
@@ -95,17 +97,33 @@ class DecoderLM:
         return x
 
     def _embed(self, params: cm.Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+        # the same rows either way; the lookup is the one whose backward
+        # sums a row's gradients in one fixed order on that device (as the
+        # CharLM's char lookup, models/charlm.py)
+        table, ids = params["embed"], tokens.long()
+        return F.embedding(ids, table) if table.device.type == "cpu" \
+            else table[ids]
 
     def logits(self, params: cm.Params, x: torch.Tensor) -> torch.Tensor:
         x = cm.rms_norm(x, params["final_norm"])
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
         return x @ w
 
-    def loss(self, params: cm.Params, batch):
-        raise NotImplementedError("DecoderLM.loss (training, with a "
-                                  "gradient through flash attention) is not "
-                                  "ported yet")
+    # ----------------------------------------------------------- train api
+    def loss(self, params: cm.Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` over the optional (B, S-1) ``mask``: the stack
+        with no kv sink (the reference's ``collect_kv=False``), the final
+        norm and the tied or untied unembedding, through ``lm_loss``. A
+        batch whose mask is all zero gives loss 0 and a zero gradient. The
+        dense family has no router, so aux is 0 (MoE is ROADMAP queue 1
+        item 8; ``get_model`` raises for it)."""
+        x = self._stack(params, self._embed(params, batch["tokens"]))
+        x = cm.rms_norm(x, params["final_norm"])
+        w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
+        loss = cm.lm_loss(x, w, batch["labels"], batch.get("mask"))
+        return loss, {"xent": loss, "aux": torch.zeros((), device=x.device)}
 
     # ----------------------------------------------------------- serve api
     def init_cache(self, B: int, cache_len: int,

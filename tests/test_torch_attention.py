@@ -175,6 +175,8 @@ def test_dispatch_and_wrappers_refuse_what_they_cannot_run():
         dkernel.decode_attention(q[:, 0], q, q, 8)
     with pytest.raises(ValueError, match="scalar or"):
         dref.decode_attention_ref(q[:, 0], q, q, torch.tensor([1, 2, 3]))
-    assert akernel.LAUNCHES == {"swa_attention": 0}
+    assert akernel.LAUNCHES == {"swa_attention": 0, "swa_attention_lse": 0,
+                                "swa_attention_bwd_dq": 0,
+                                "swa_attention_bwd_dkdv": 0}
     assert dkernel.LAUNCHES == {"decode_attention": 0}
 

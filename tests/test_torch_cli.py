@@ -186,10 +186,11 @@ def test_train_cli_real_run_matches_the_reference(tmp_path, monkeypatch):
 
 
 def test_train_cli_real_learner_on_an_unported_family_raises():
-    """smollm-135m's transformer has no ported loss yet: the real learner
-    raises as the port's models do."""
+    """rwkv6-7b's RWKV6 has no ported loss yet (its WKV backward is
+    ROADMAP queue 1 item 6): the real learner raises as the port's models
+    do. (smollm-135m trains: tests/test_torch_train_transformer.py.)"""
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+        train.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu",
                     "--concurrency", "2", "--rounds", "1"])
 
 
