@@ -25,9 +25,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      bit-equal to the forward without it) and the dQ and dK/dV backward
      kernels against ``attention_bwd_ref`` (within 1e-4 of max(1, its
      largest entry)) at the training shapes (48 and 8 x 64 tokens, 9/3
-     heads, 64), the serving length (8 x 1024), the forward's cases and
-     strided views; the folded launch of a 6-client cohort and the autograd
-     Function under vmap(grad) bit-equal to per-client launches;
+     heads, 64), the serving length (8 x 1024), the forward's cases, 9
+     query heads on one kv head and strided views; the folded launch of a
+     6-client cohort and the autograd Function under vmap(grad) bit-equal
+     to per-client launches;
   3b. hold the learner's cohort step (one batched local step over the
      stacked clients, replayed from a CUDA graph) at full width against the
      plain per-client step: a ragged 16-client cohort with 1 to 8 local
@@ -52,11 +53,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      K1 over a round's table of 24 leaves eagerly and in a CUDA graph,
      beside the per-leaf loop timed the same two ways, and the host wall
      of ``compress_roundtrip`` for one round; K3's training kernels at the
-     sync training shape (48 x 64) and the serving length (8 x 1024): the
-     forward with LSE, each backward kernel and the two together, beside
-     the plain backward, SDPA's backward through autograd (``enable_gqa``,
-     f32) and their bounds (10 D operations an attended pair for the whole
-     backward at the f32 SIMT rate, or the bytes at the HBM rate);
+     sync training shape (48 x 64) and the serving length (8 x 1024),
+     eagerly and in a CUDA graph: the forward with LSE, each backward kernel
+     and the two together, beside the plain backward, SDPA's backward
+     through autograd (``enable_gqa``, f32) and their bounds (10 D
+     operations an attended pair for the whole backward at the 3xTF32 rate
+     of their route, or the bytes at the HBM rate);
   5. drive the port's main paths, each with the kernels' launch counts
      reset just before and read just after:
      a. the train CLI, ``repro_torch.launch.train.main(["--spec", S,
@@ -227,7 +229,8 @@ CHECKS = {                     # what phase 3 held each kernel to (passed)
                             "(48, 64, 9/3, 64) and (8, 64, 9/3, 64) causal, "
                             "(8, 1024, 9/3, 64), the forward's cases "
                             "(windows, non-causal, ragged S, D "
-                            "16/32/64/128) and strided views; the folded "
+                            "16/32/64/128), 9 query heads on one kv head "
+                            "and strided views; the folded "
                             "6 x 8 launch and vmap(grad) bit-equal to "
                             "per-client launches; bf16 raises",
     "swa_attention_bwd_dkdv": "as swa_attention_bwd_dq, dk and dv",
@@ -741,7 +744,8 @@ def check_attention_bwd(dev, gen):
     dK/dV kernels against ``attention_bwd_ref`` on the same q, k, v, o,
     lse and dO (within BWD_TOL of max(1, the plain gradient's largest
     entry)), at the training shapes, the serving length, the forward's
-    cases (windows, non-causal, ragged S, D 16/32/128) and strided views;
+    cases (windows, non-causal, ragged S, D 16/32/128), 9 query heads on
+    one kv head and strided views;
     the folded cohort launch (N B) bit-equal to N launches of B; the
     autograd Function under vmap(grad_and_value) giving a per-client loop's
     outputs and gradients bit for bit; a bf16 backward raises. Returns the
@@ -786,8 +790,10 @@ def check_attention_bwd(dev, gen):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
+    # and a group of 9 query heads on one kv head (three a cluster rank)
     cases = BWD_CASES + ATTN_CASES + [(2, 70, 4, 2, 128, 0, False),
-                                      (1, 50, 4, 4, 16, 8, False)]
+                                      (1, 50, 4, 4, 16, 8, False),
+                                      (2, 80, 9, 1, 32, 0, True)]
     for B, S, hq, hkv, D, window, causal in cases:
         one(randn(B, S, hq, D), randn(B, S, hkv, D), randn(B, S, hkv, D),
             randn(B, S, hq, D), causal, window,
@@ -853,11 +859,13 @@ def time_attention_bwd(dev, gen):
     main path, and at the serving length (8 x 1024): the forward with LSE
     against its plain version and SDPA's forward; each backward kernel, and
     the two together, against the plain backward and SDPA's backward
-    through autograd (``enable_gqa``, f32), in turns. Bounds: 10 D
+    through autograd (``enable_gqa``, f32), in turns; each kernel also in a
+    CUDA graph (``graph_ms``), as the cohort step replays them. Bounds: 10 D
     operations an attended pair for the whole backward (6 D for dQ: S, dP,
-    dQ; 8 D for dK/dV: S, dP, dV, dK; 4 D for the forward) at the route's
-    rate (f32 SIMT for the backward, 3xTF32 for the forward), or the bytes
-    each must read once and write once at the HBM rate, if larger."""
+    dQ; 8 D for dK/dV: S, dP, dV, dK; 4 D for the forward) at the rate of
+    their f32 route (``K3_ROUTE``: 3xTF32, three TF32 products each), or
+    the bytes each must read once and write once at the HBM rate, if
+    larger."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.swa_attention import kernel as AK
@@ -898,13 +906,23 @@ def time_attention_bwd(dev, gen):
             lambda: AK.attention_bwd_dkdv(q, k, v, lse, do, delta), 5)
         both_ms = cuda_time_ms(lambda: AK.attention_bwd(q, k, v, o, lse, do),
                                5)
+        # device time with no host in the way, as the cohort's graph runs them
+        graph_ms = {
+            "swa_attention_lse": graph_time_ms(
+                lambda: AK.attention_fwd(q, k, v), 20),
+            "swa_attention_bwd_dq": graph_time_ms(
+                lambda: AK.attention_bwd_dq(q, k, v, o, lse, do), 20),
+            "swa_attention_bwd_dkdv": graph_time_ms(
+                lambda: AK.attention_bwd_dkdv(q, k, v, lse, do, delta), 20),
+            "backward_both_kernels": graph_time_ms(
+                lambda: AK.attention_bwd(q, k, v, o, lse, do), 20)}
         lib_bwd = cuda_time_ms(sdpa_bwd, 5)
         lib_fwd = cuda_time_ms(sdpa_fwd, 5)
         plain = (bwd_plain1 + bwd_plain2) / 2
-        _, mult, rate = K3_ROUTE["float32"]
+        route, mult, rate = K3_ROUTE["float32"]
         key = "training" if S == 64 else "serving"
         out[key] = {
-            "shape": [B, S, Hq, Hkv, D],
+            "shape": [B, S, Hq, Hkv, D], "route": route,
             "swa_attention_lse": dict(
                 ms=lse_ms, plain_ms=lse_plain, library_ms=lib_fwd,
                 **dict(zip(("bound_ms", "bound_by"), bound(
@@ -913,22 +931,27 @@ def time_attention_bwd(dev, gen):
             "swa_attention_bwd_dq": dict(
                 ms=dq_ms, plain_ms=plain, library_ms=lib_bwd,
                 **dict(zip(("bound_ms", "bound_by"), bound(
-                    6 * D * pairs, 4 * big + 2 * small + 2 * rows)))),
+                    mult * 6 * D * pairs, 4 * big + 2 * small + 2 * rows,
+                    rate)))),
             "swa_attention_bwd_dkdv": dict(
                 ms=dkdv_ms, plain_ms=plain, library_ms=lib_bwd,
                 **dict(zip(("bound_ms", "bound_by"), bound(
-                    8 * D * pairs, 2 * big + 4 * small + 2 * rows)))),
+                    mult * 8 * D * pairs, 2 * big + 4 * small + 2 * rows,
+                    rate)))),
             "backward_both_kernels": dict(
                 ms=both_ms, plain_ms=plain, library_ms=lib_bwd,
                 **dict(zip(("bound_ms", "bound_by"), bound(
-                    10 * D * pairs, 4 * big + 4 * small + rows)))),
+                    mult * 10 * D * pairs, 4 * big + 4 * small + rows,
+                    rate)))),
         }
         for name, t in out[key].items():
-            if name != "shape":
-                print(f"[chip_smoke] {name} at {key} {out[key]['shape']}: "
-                      f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
-                      f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
-                      f"{t['bound_by']})")
+            if name not in ("shape", "route"):
+                t["graph_ms"] = graph_ms[name]
+                print(f"[chip_smoke] {name} at {key} {out[key]['shape']}, "
+                      f"{route}: {t['ms']:.4f} ms, {t['graph_ms']:.4f} ms in "
+                      f"a CUDA graph (plain "
+                      f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
+                      f"bound {t['bound_ms']:.4f} by {t['bound_by']})")
     return out
 
 
@@ -2410,6 +2433,7 @@ def main() -> int:
             "replaces": TPU_KERNELS[name],
             "launches": smollm["train_cli"]["launches"][name],
             "max_abs_err": bwd_err[name], "ms": t["ms"],
+            "graph_ms": t["graph_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "check": CHECKS[name], "max_rel_err": bwd_rel[name],

@@ -6,8 +6,9 @@ reference's ``kernels/swa_attention/kernel.py``): both products on the
 tensor cores, 3xTF32 for f32 inputs and bf16 mma for bf16 (see the
 source's note). ``attention_fwd`` is the same kernel writing each row's
 log-sum-exp as well, which training saves; ``attention_bwd_dq`` and
-``attention_bwd_dkdv`` are the two backward kernels (f32), which the TPU
-kernel has no counterpart of, and ``attention_bwd`` launches both.
+``attention_bwd_dkdv`` are the two backward kernels (f32, on the tensor
+cores in 3xTF32), which the TPU kernel has no counterpart of, and
+``attention_bwd`` launches both.
 
 Each wrapper takes CUDA tensors only, checks what its kernel cannot take,
 allocates its outputs, launches on PyTorch's current stream without
@@ -160,6 +161,7 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq, delta
+    q, k, v, o, do = (aligned16(t) for t in (q, k, v, o, do))
     strides = (ctypes.c_longlong * 15)(
         *(s for t in (q, k, v, o, do) for s in t.stride()[:3]))
     lib = _bwd_lib()
@@ -189,6 +191,7 @@ def attention_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return dk, dv
+    q, k, v, do = (aligned16(t) for t in (q, k, v, do))
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, do) for s in t.stride()[:3]))
     lib = _bwd_lib()
